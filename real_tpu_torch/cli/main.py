@@ -9,13 +9,14 @@ Flags mirror real_tpu's CLI (RealOptions.cpp:142-396), plus -device:
            [-gcmut_bias x] [-filter_level 0..4] [-v 0|1]
            [-B batch] [-K cand_cap] [-S survivor_cap] [-device cuda|cpu]
 
-This slice runs matchUnique (-u 1) with seeds up to 32 bases on one device
-and one index shard. -u 0, -shards N>1, -l over 32, -ckpt, -trace,
--metrics, -exchange and -debug 1 raise NotImplementedError.
+This slice runs matchUnique (-u 1) and matchAll (-u 0) with seeds up to 32
+bases on one device and one index shard. -shards N>1, -l over 32, -ckpt,
+-trace, -metrics, -exchange and -debug 1 raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 from typing import List, Optional
 
@@ -76,8 +77,6 @@ def parse_args(argv: List[str]) -> RealConfig:
 def _check_supported(cfg: RealConfig) -> None:
     """Raise for the options this slice of the port does not run yet."""
     missing = []
-    if not cfg.match_unique:
-        missing.append("-u 0 (matchAll)")
     if cfg.index_shards > 1:
         missing.append("-shards N>1 (index sharding)")
     if cfg.seedl > 32:
@@ -98,7 +97,7 @@ def _check_supported(cfg: RealConfig) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from real_tpu_torch.cli.output import write_unique
+    from real_tpu_torch.cli.output import write_all_arrays, write_unique
     from real_tpu_torch.engine import driver
     from real_tpu_torch.io import reads as reads_io
 
@@ -114,13 +113,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("Warning: gapped matching (-g) is experimental and disabled "
               "in the reference (real.cpp:23); ignoring it.",
               file=sys.stderr)
-    result = driver.run_match_unique(cfg, rs, texts, device)
-    if cfg.outputfilename == "-":
-        unique = write_unique(sys.stdout, rs, result, texts, cfg.scores)
+    if cfg.match_unique:
+        result = driver.run_match_unique(cfg, rs, texts, device)
     else:
-        with open(cfg.outputfilename, "w") as out:
+        result = driver.run_match_all(cfg, rs, texts, device, as_arrays=True)
+    with (contextlib.nullcontext(sys.stdout) if cfg.outputfilename == "-"
+          else open(cfg.outputfilename, "w")) as out:
+        if cfg.match_unique:
             unique = write_unique(out, rs, result, texts, cfg.scores)
-    print(f"unique: {unique}", file=sys.stderr)
+            print(f"unique: {unique}", file=sys.stderr)
+        else:
+            write_all_arrays(out, rs, result.cols, texts, cfg.scores)
     return 0
 
 

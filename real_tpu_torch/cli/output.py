@@ -1,6 +1,7 @@
 """Byte-identical output record formatting (NumPy).
 
-Record layout (matchUniqueImplementation.cpp:265-291), tab separated:
+Record layout (matchUniqueImplementation.cpp:265-291,
+matchAllImplementation.cpp:481-517), tab separated:
 
   read_id  seq[matched orientation]  [score]  1  a  patl  +/-  fragment_id
   1-based-position-in-fragment  <empty>  num_mismatches
@@ -11,11 +12,11 @@ digits) == Python '%.6g' of the float32 value widened to double.
 
 from __future__ import annotations
 
-from typing import IO, List
+from typing import IO, Dict, List, Tuple
 
 import numpy as np
 
-from real_tpu_torch.engine.driver import MatchResult, TextFile
+from real_tpu_torch.engine.driver import HIT_DTYPES, MatchResult, TextFile
 from real_tpu_torch.engine.matchstep import REVERSE, STRAIGHT
 from real_tpu_torch.io.reads import ReadSet, reverse_complement
 
@@ -132,3 +133,32 @@ def write_unique(out: IO, rs: ReadSet, result: MatchResult,
             result.frag[p], result.pos[p], result.errs[p],
             result.score[p], texts, scores))
     return int(pids.size)
+
+
+def write_all_arrays(out: IO, rs: ReadSet, cols, texts: List[TextFile],
+                     scores: bool) -> int:
+    """matchAll output from sorted, deduped hit columns (pid, k, pos,
+    fileid, frag, score, inv) — MatchAllResult.cols of
+    driver.run_match_all(as_arrays=True) — in bounded chunks of records.
+    The reference's order is thread-interleaved and nondeterministic
+    (matchAllImplementation.cpp:467-533); this prints read-major, the hits
+    of a read in unified (sorted) order, as real_tpu does. Returns the
+    record count."""
+    pid, k, pos, fid, frag, score, inv = cols
+    for s in range(0, len(pid), _CHUNK_RECORDS):
+        e = s + _CHUNK_RECORDS
+        _write_bytes(out, _format_records(
+            rs, pid[s:e], inv[s:e].astype(bool), fid[s:e].astype(np.int64),
+            frag[s:e].astype(np.int64), pos[s:e], k[s:e], score[s:e],
+            texts, scores))
+    return int(len(pid))
+
+
+def write_all(out: IO, rs: ReadSet, hits: Dict[int, List[Tuple]],
+              texts: List[TextFile], scores: bool) -> int:
+    """matchAll output from the {patid: [(k, pos, fileid, frag, score,
+    inverted), ...]} form of driver.run_match_all (small runs, tests)."""
+    rows = [(pid,) + h for pid in sorted(hits) for h in hits[pid]]
+    cols = [np.array([r[i] for r in rows], dtype=dt)
+            for i, dt in enumerate(HIT_DTYPES)]
+    return write_all_arrays(out, rs, tuple(cols), texts, scores)

@@ -1,8 +1,9 @@
-"""End-to-end matchUnique driver: one device, one index shard per text.
+"""End-to-end matchUnique and matchAll drivers: one device, one index
+shard per text.
 
-Counterpart of real_tpu/engine/driver.py (run_match_unique on its
-sequential single-device path). Loop structure mirrors the reference
-(matchUniqueImplementation.cpp:1082-1489):
+Counterpart of real_tpu/engine/driver.py (run_match_unique and
+run_match_all on their sequential single-device path). Loop structure
+mirrors the reference (matchUniqueImplementation.cpp:1082-1489):
 
     for each text file:                 (getFileList, ".fa" suffix)
       build packed text + fragment ranges
@@ -11,11 +12,13 @@ sequential single-device path). Loop structure mirrors the reference
         match_step(...)                 (state persists per read)
     final pass: format records in read order
 
-Per-read best-hit state lives on the device across files. Reads whose
-candidates overflow the caps are rerun from scratch with 16x caps against
-the cached index — the fixed-shape answer to std::equal_range's unbounded
-ranges. Index sharding, the memory planner, streaming reads, checkpoints
-and several devices wait for later slices of the port.
+matchUnique keeps per-read best-hit state on the device across files;
+matchAll compacts each step's hits on the device and sorts and dedups all
+of them on the host. Reads whose candidates overflow the caps are rerun
+from scratch with 16x caps against the cached index — the fixed-shape
+answer to std::equal_range's unbounded ranges. Index sharding, the memory
+planner, streaming reads, checkpoints and several devices wait for later
+slices of the port.
 
 Entry points run on the card: `device` defaults to "cuda" and raises
 without CUDA; only an explicit device="cpu" runs on the CPU.
@@ -34,7 +37,8 @@ import numpy as np
 import torch
 
 from real_tpu_torch.config import RealConfig
-from real_tpu_torch.engine.matchstep import initial_state, match_step
+from real_tpu_torch.engine.matchstep import (CompactHits, initial_state,
+                                             match_step)
 from real_tpu_torch.index.build import build_index, pick_bucket_bits
 from real_tpu_torch.io import fasta, pipeline, reads as reads_io
 from real_tpu_torch.scoring.scoring import Scoring, score_tables
@@ -180,14 +184,9 @@ class _Progress:
                                   + time.perf_counter() - t)
 
 
-def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
-                     texts: List[TextFile], device="cuda",
-                     patid_filter: Optional[np.ndarray] = None,
-                     cand_cap: Optional[int] = None,
-                     survivor_cap: Optional[int] = None,
-                     _depth: int = 0,
-                     _index_cache: Optional[Dict] = None) -> MatchResult:
-    """matchUnique over all texts; `texts` must live on `device`."""
+def _check_run(cfg: RealConfig, texts: List[TextFile],
+               device) -> torch.device:
+    """The run's device, after the checks every entry point shares."""
     dev = resolve_device(device)
     if cfg.seedl > 32:
         raise NotImplementedError("seeds over 32 bases are not ported yet")
@@ -197,14 +196,73 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
         if tf.packed.words.device.type != dev.type:
             raise ValueError(f"text {tf.name} is on {tf.packed.words.device},"
                              f" the run on {dev}")
+    return dev
+
+
+def _step_kwargs(cfg: RealConfig, cand_cap: int, survivor_cap: int) -> dict:
+    scoring = Scoring(cfg.similarity, cfg.gc, cfg.trans, cfg.err,
+                      cfg.gcmut_bias)
+    return dict(tables=score_tables(scoring) if cfg.scores else None,
+                seedl=cfg.seedl, seedkmax=cfg.seedkmax,
+                totalkmax=cfg.totalkmax, cand_cap=cand_cap,
+                survivor_cap=survivor_cap, scores=cfg.scores)
+
+
+def _make_source(cfg: RealConfig, rs: reads_io.ReadSet,
+                 patid_filter: Optional[np.ndarray], depth: int,
+                 dev: torch.device) -> pipeline.ResidentSource:
+    """Device-resident read batches; overflow reruns use 512-row batches."""
+    return pipeline.ResidentSource(
+        rs, pipeline.make_plans(
+            rs, cfg.batch_size, cfg.seedl, patid_filter,
+            warn=lambda m: print(m, file=sys.stderr),
+            max_rows=512 if depth else 0), dev)
+
+
+def _text_units(cfg: RealConfig, texts: List[TextFile], num_reads: int,
+                cand_cap: int, prog: _Progress, index_cache: Dict):
+    """Yield (fileid, text, index, bsearch_steps) for every usable text,
+    one index shard each. A single-text run parks its index in
+    index_cache, so the overflow reruns reuse it instead of rebuilding."""
+    usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
+              if _text_usable(cfg, tf)]
+    for fi, text in usable:
+        num_windows = text.n - cfg.seedl + 1
+        ck = (fi, 0, num_windows, cfg.seedl)
+        index = index_cache.get(ck)
+        if index is None:
+            # bucket-width hint: the FULL read-set size, so overflow
+            # reruns build (and reuse) the same table as the first pass
+            bbits = pick_bucket_bits(cfg.seedl, num_windows, num_reads,
+                                     cap=BUCKET_BITS_CAP)
+            with prog.phase("index_build"):
+                index = build_index(text, cfg.seedl, start=0,
+                                    num_windows=num_windows,
+                                    bucket_bits=bbits)
+            if len(usable) == 1:
+                index_cache[ck] = index
+        steps = _bsearch_steps_static(num_windows, cand_cap,
+                                      index.bucket_bits)
+        prog.event(f"file {fi}: index dispatched ({num_windows} windows, "
+                   f"bsearch={steps}, bbits={index.bucket_bits})")
+        yield fi, text, index, steps
+
+
+def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
+                     texts: List[TextFile], device="cuda",
+                     patid_filter: Optional[np.ndarray] = None,
+                     cand_cap: Optional[int] = None,
+                     survivor_cap: Optional[int] = None,
+                     _depth: int = 0,
+                     _index_cache: Optional[Dict] = None) -> MatchResult:
+    """matchUnique over all texts; `texts` must live on `device`."""
+    dev = _check_run(cfg, texts, device)
     if _index_cache is None:
         _index_cache = {}
     cand_cap = cand_cap or cfg.cand_cap
     survivor_cap = survivor_cap or cfg.survivor_cap
     numpat = rs.num_reads
-    scoring = Scoring(cfg.similarity, cfg.gc, cfg.trans, cfg.err,
-                      cfg.gcmut_bias)
-    tables = score_tables(scoring) if cfg.scores else None
+    kw = _step_kwargs(cfg, cand_cap, survivor_cap)
 
     result = MatchResult(
         st=np.zeros(numpat, np.int32), pos=np.zeros(numpat, np.int32),
@@ -214,37 +272,14 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
 
     prog = _Progress(cfg.verbose)
     with prog.phase("setup"):
-        source = pipeline.ResidentSource(
-            rs, pipeline.make_plans(
-                rs, cfg.batch_size, cfg.seedl, patid_filter,
-                warn=lambda m: print(m, file=sys.stderr),
-                max_rows=512 if _depth else 0), dev)
+        source = _make_source(cfg, rs, patid_filter, _depth, dev)
     plans = source.plans
     states = {bi: initial_state(p.rows, dev) for bi, p in enumerate(plans)}
     overflow_dev = {bi: torch.zeros(p.rows, dtype=torch.bool, device=dev)
                     for bi, p in enumerate(plans)}
 
-    usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
-              if _text_usable(cfg, tf)]
-    for fi, text in usable:
-        num_windows = text.n - cfg.seedl + 1
-        ck = (fi, 0, num_windows, cfg.seedl)
-        index = _index_cache.get(ck)
-        if index is None:
-            # bucket-width hint: the FULL read-set size, so overflow
-            # reruns build (and reuse) the same table as the first pass
-            bbits = pick_bucket_bits(cfg.seedl, num_windows, rs.num_reads,
-                                     cap=BUCKET_BITS_CAP)
-            with prog.phase("index_build"):
-                index = build_index(text, cfg.seedl, start=0,
-                                    num_windows=num_windows,
-                                    bucket_bits=bbits)
-            if len(usable) == 1:
-                _index_cache[ck] = index
-        steps = _bsearch_steps_static(num_windows, cand_cap,
-                                      index.bucket_bits)
-        prog.event(f"file {fi}: index dispatched ({num_windows} windows, "
-                   f"bsearch={steps}, bbits={index.bucket_bits})")
+    for fi, text, index, steps in _text_units(cfg, texts, numpat, cand_cap,
+                                              prog, _index_cache):
         with prog.phase("match"):
             for bi, b in enumerate(source):
                 states[bi], surv = match_step(
@@ -252,10 +287,7 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
                     text.words, text.nbits, text.ncum, text.frag_offsets,
                     b.codes, b.quals, b.valid,
                     states[bi], fi, np.float32(cfg.filter_value(b.patl)),
-                    tables=tables, seedl=cfg.seedl, seedkmax=cfg.seedkmax,
-                    totalkmax=cfg.totalkmax, cand_cap=cand_cap,
-                    survivor_cap=survivor_cap, scores=cfg.scores,
-                    bsearch_steps=steps, text_has_n=text.has_n)
+                    bsearch_steps=steps, text_has_n=text.has_n, **kw)
                 overflow_dev[bi] |= surv.overflow
 
     # the match loop only dispatches; its device work completes here
@@ -292,11 +324,269 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
             _depth=_depth + 1, _index_cache=_index_cache)
         for f in ("st", "pos", "frag", "fileid", "errs", "score"):
             getattr(result, f)[over_ids] = getattr(sub, f)[over_ids]
-        for k, v in sub.metrics["phase_s"].items():
-            result.metrics["phase_s"][f"rerun.{k}"] = (
-                result.metrics["phase_s"].get(f"rerun.{k}", 0.0) + v)
+        _add_rerun_phases(result.metrics["phase_s"], sub.metrics["phase_s"])
+    _print_phases(cfg, result.metrics["phase_s"])
+    return result
+
+
+def _add_rerun_phases(phase_s: Dict[str, float],
+                      sub: Dict[str, float]) -> None:
+    for k, v in sub.items():
+        phase_s[f"rerun.{k}"] = phase_s.get(f"rerun.{k}", 0.0) + v
+
+
+def _print_phases(cfg: RealConfig, phase_s: Dict[str, float]) -> None:
     if cfg.verbose:
         print("phase timers: " + " ".join(
-            f"{k}={v:.2f}s" for k, v in sorted(
-                result.metrics["phase_s"].items())), file=sys.stderr)
-    return result
+            f"{k}={v:.2f}s" for k, v in sorted(phase_s.items())),
+            file=sys.stderr)
+
+
+# ---------------------------------------------------------------------------
+# matchAll
+# ---------------------------------------------------------------------------
+
+HIT_DTYPES = (np.int64, np.int64, np.int64, np.int64, np.int64,
+               np.float32, bool)
+
+
+@dataclasses.dataclass
+class MatchAllResult:
+    """Every qualifying hit of a matchAll run as columns (one entry per
+    record), sorted by (pid; k, pos, fileid, frag, score, inv) — the
+    reference's MatchPosAndError order, matchAllImplementation.cpp:121-148
+    — and deduped (unifyMatches, :150-161), and the run's metrics."""
+    pid: np.ndarray      # int64
+    k: np.ndarray        # int64
+    pos: np.ndarray      # int64
+    fileid: np.ndarray   # int64
+    frag: np.ndarray     # int64
+    score: np.ndarray    # float32
+    inv: np.ndarray      # bool
+    # phase_s (seconds per phase), overflow_rerun_reads,
+    # batch_hit_overflow_steps
+    metrics: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    @property
+    def cols(self) -> tuple:
+        return (self.pid, self.k, self.pos, self.fileid, self.frag,
+                self.score, self.inv)
+
+    def by_read(self) -> Dict[int, List[tuple]]:
+        """{pid: [(k, pos, fileid, frag, score, inverted), ...]}."""
+        out: Dict[int, List[tuple]] = {}
+        if len(self.pid) == 0:
+            return out
+        bounds = np.flatnonzero(np.diff(self.pid)) + 1
+        starts = np.concatenate([[0], bounds])
+        ends = np.concatenate([bounds, [len(self.pid)]])
+        for s, e in zip(starts, ends):
+            out[int(self.pid[s])] = [
+                (int(self.k[i]), int(self.pos[i]), int(self.fileid[i]),
+                 int(self.frag[i]), float(self.score[i]), bool(self.inv[i]))
+                for i in range(s, e)]
+        return out
+
+
+def _sort_dedup_hits(cols: tuple) -> tuple:
+    """Sort hit columns (pid, k, pos, fileid, frag, score, inv) by all
+    seven keys in that order and drop identical neighbours
+    (real_tpu/engine/driver.py _sort_dedup_hits).
+
+    The 7-key comparator collapses to three composite-uint64 stable passes
+    (LSD order): frag is a function of (fileid, pos), so it never decides,
+    and score and inv only decide between the strands of one
+    (pid, k, pos, fileid). Keys out of the composites' range take a 7-key
+    lexsort."""
+    pid, k, pos, fid, frag, score, inv = cols
+    if len(pid) and (int(pid.max()) >= 1 << 60 or int(fid.max()) >= 1 << 16
+                     or int(pos.max()) >= 1 << 31):
+        order = np.lexsort((inv, score, frag, fid, pos, k, pid))
+    else:
+        # +0.0 so -0.0 keys equal to +0.0 (float compare semantics);
+        # order-preserving f32->u32: flip sign bit (+) / all bits (-)
+        u32 = (score.astype(np.float32) + np.float32(0.0)).view(np.uint32)
+        flip = ((u32.view(np.int32) >> 31).view(np.uint32)
+                & np.uint32(0x7FFFFFFF)) | np.uint32(0x80000000)
+        p1 = (u32 ^ flip).astype(np.uint64)
+        p1 <<= 1
+        p1 |= inv
+        p2 = pos.astype(np.uint64, copy=True)
+        p2 <<= 16
+        p2 |= fid.astype(np.uint64, copy=False)
+        p3 = pid.astype(np.uint64, copy=True)
+        p3 <<= 4
+        p3 |= k.astype(np.uint64, copy=False)
+        order = np.argsort(p1, kind="stable")
+        order = order[np.argsort(p2[order], kind="stable")]
+        order = order[np.argsort(p3[order], kind="stable")]
+    pid, k, pos, fid, frag, score, inv = (
+        a[order] for a in (pid, k, pos, fid, frag, score, inv))
+    keep = np.ones(len(pid), bool)
+    if len(pid) > 1:
+        same = ((pid[1:] == pid[:-1]) & (k[1:] == k[:-1])
+                & (pos[1:] == pos[:-1]) & (fid[1:] == fid[:-1])
+                & (frag[1:] == frag[:-1]) & (score[1:] == score[:-1])
+                & (inv[1:] == inv[:-1]))
+        keep[1:] = ~same
+    return tuple(a[keep] for a in (pid, k, pos, fid, frag, score, inv))
+
+
+class _HitFetch:
+    """One step's CompactHits on their way to the host: packed into one
+    int32 buffer [pos | m1 | m2 | score bits | count | overflow]. On the
+    card the copy goes non_blocking into pinned memory and an event marks
+    its arrival, so the host waits only when it decodes the step."""
+
+    def __init__(self, ch: CompactHits):
+        self.h = ch.pos.shape[0]
+        flat = torch.cat([ch.pos, ch.m1, ch.m2, ch.score.view(torch.int32),
+                          ch.count.reshape(1), ch.overflow.to(torch.int32)])
+        self.event = None
+        if flat.device.type == "cuda":
+            self.host = torch.empty(flat.shape, dtype=torch.int32,
+                                    pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = flat
+
+    def numpy(self) -> CompactHits:
+        """The step's CompactHits as numpy arrays (waits for the copy)."""
+        if self.event is not None:
+            self.event.synchronize()
+        a, h = self.host.numpy(), self.h
+        return CompactHits(pos=a[:h], m1=a[h:2 * h], m2=a[2 * h:3 * h],
+                           score=a[3 * h:4 * h].view(np.float32),
+                           count=int(a[4 * h]),
+                           overflow=a[4 * h + 1:].astype(bool))
+
+
+class _HitAccumulator:
+    """Hit columns decoded step by step from the compacted prefixes,
+    sorted and deduped once at the end (matchAllImplementation.cpp:99-161
+    unifyMatches semantics)."""
+
+    def __init__(self) -> None:
+        self.cols: List[Tuple[np.ndarray, ...]] = []
+        # steps whose TOTAL hit count exceeded the device buffer H: the
+        # whole batch is rerun (compact_hits)
+        self.batch_overflow_steps = 0
+
+    def add_compact(self, ch: CompactHits, patids: np.ndarray, fi: int,
+                    n: int, overflow_out: np.ndarray) -> None:
+        """Decode one step's CompactHits (numpy) for its n real reads."""
+        overflow_out[patids[ch.overflow[:n]]] = True
+        h = len(ch.pos)
+        self.batch_overflow_steps += int(ch.count > h)
+        c = min(ch.count, h)
+        rows = ch.m1[:c] >> 4
+        keep = rows < n            # padded rows never produce hits
+        rows = rows[keep]
+        if rows.size == 0:
+            return
+        self.cols.append((
+            patids[rows].astype(np.int64),
+            (ch.m1[:c][keep] & 15).astype(np.int64),
+            ch.pos[:c][keep].astype(np.int64),
+            np.full(rows.size, fi, np.int64),
+            (ch.m2[:c][keep] >> 1).astype(np.int64),
+            ch.score[:c][keep].astype(np.float32),
+            (ch.m2[:c][keep] & 1).astype(bool)))
+
+    def finalize(self) -> tuple:
+        """Sorted + deduped hit columns (pid, k, pos, fileid, frag,
+        score, inv)."""
+        if not self.cols:
+            return tuple(np.zeros(0, dt) for dt in HIT_DTYPES)
+        return _sort_dedup_hits(tuple(
+            np.concatenate([c[i] for c in self.cols]) for i in range(7)))
+
+
+# steps whose hits may be on their way to the host at once (real_tpu keeps
+# the same depth of pending fetches)
+_PENDING_MAX = 8
+
+
+def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
+                  texts: List[TextFile], device="cuda",
+                  patid_filter: Optional[np.ndarray] = None,
+                  cand_cap: Optional[int] = None,
+                  survivor_cap: Optional[int] = None,
+                  as_arrays: bool = False,
+                  _depth: int = 0,
+                  _index_cache: Optional[Dict] = None):
+    """Every qualifying hit per read; `texts` must live on `device`.
+
+    Returns {patid: [(k, pos, fileid, frag, score, inverted), ...]} sorted
+    and deduped in the reference's order — or, with as_arrays=True, the
+    same records as a MatchAllResult of columns with the run's metrics
+    (no per-hit Python objects; cli.output.write_all_arrays prints it).
+
+    Each step's compacted hits start for the host right after the step is
+    dispatched and are decoded once _PENDING_MAX newer steps are queued, so
+    the copies overlap device work and device memory stays bounded. Reads
+    that overflow a cap, or whose batch overflows the hit buffer, are
+    rerun with 16x caps; their first-pass hits are dropped before the
+    rerun's are merged."""
+    dev = _check_run(cfg, texts, device)
+    if _index_cache is None:
+        _index_cache = {}
+    cand_cap = cand_cap or cfg.cand_cap
+    survivor_cap = survivor_cap or cfg.survivor_cap
+    kw = _step_kwargs(cfg, cand_cap, survivor_cap)
+
+    prog = _Progress(cfg.verbose)
+    with prog.phase("setup"):
+        source = _make_source(cfg, rs, patid_filter, _depth, dev)
+    overflow = np.zeros(rs.num_reads, bool)
+    acc = _HitAccumulator()
+    pending: List[tuple] = []
+
+    def drain(to_len: int) -> None:
+        while len(pending) > to_len:
+            fetch, patids, fi = pending.pop(0)
+            acc.add_compact(fetch.numpy(), patids, fi, len(patids), overflow)
+
+    for fi, text, index, steps in _text_units(cfg, texts, rs.num_reads,
+                                              cand_cap, prog, _index_cache):
+        with prog.phase("match"):
+            for b in source:
+                _, ch = match_step(
+                    index.sig, index.pos, index.bb,
+                    text.words, text.nbits, text.ncum, text.frag_offsets,
+                    b.codes, b.quals, b.valid,
+                    None, fi, np.float32(cfg.filter_value(b.patl)),
+                    matchall=True, bsearch_steps=steps,
+                    text_has_n=text.has_n, **kw)
+                pending.append((_HitFetch(ch), b.patids, fi))
+                drain(_PENDING_MAX)
+
+    with prog.phase("drain"):
+        drain(0)
+    with prog.phase("finalize"):
+        cols = acc.finalize()
+
+    over_ids = np.flatnonzero(overflow)
+    metrics = {"phase_s": dict(prog.phase_s),
+               "overflow_rerun_reads": int(len(over_ids)),
+               "batch_hit_overflow_steps": acc.batch_overflow_steps}
+    if len(over_ids):
+        if _depth >= 4:
+            raise RuntimeError(
+                f"{len(over_ids)} reads overflow matchAll caps even at "
+                f"cand_cap={cand_cap}")
+        print(f"rerunning {len(over_ids)} overflowing reads with "
+              f"cand_cap={cand_cap * 16}", file=sys.stderr)
+        sub = run_match_all(
+            cfg, rs, texts, device=dev, patid_filter=over_ids,
+            cand_cap=cand_cap * 16, survivor_cap=survivor_cap * 16,
+            as_arrays=True, _depth=_depth + 1, _index_cache=_index_cache)
+        keep = ~np.isin(cols[0], over_ids)
+        cols = _sort_dedup_hits(tuple(
+            np.concatenate([a[keep], b]) for a, b in zip(cols, sub.cols)))
+        _add_rerun_phases(metrics["phase_s"], sub.metrics["phase_s"])
+    _print_phases(cfg, metrics["phase_s"])
+    result = MatchAllResult(*cols, metrics=metrics)
+    return result if as_arrays else result.by_read()

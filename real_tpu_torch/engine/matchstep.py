@@ -1,14 +1,16 @@
-"""The per-(read-batch x index-shard) match step, matchUnique.
+"""The per-(read-batch x index-shard) match step, matchUnique and matchAll.
 
 Counterpart of real_tpu/engine/matchstep.py (see its module docstring for
 the design): probes, candidate ranges from the bucket table (optionally
 bisected to the exact equal range), stable compaction of the valid lanes
 to <= S survivors per read in reference merge order, the window fetch,
-XOR+popcount verification, f64 scoring and the UpdateUniqueInfo automaton
-fold. Each step keeps real_tpu's order-defining operations: the stable
-argsort compaction, the stable (probe, pos) sort of the compacted lanes,
-and the fold over survivors in lane order — scores mode can observe it
-(engine/monoid.py of real_tpu).
+XOR+popcount verification, f64 scoring, and then either the
+UpdateUniqueInfo automaton fold (matchUnique) or the compaction of every
+deduplicated hit for the host (matchAll, compact_hits). Each step keeps
+real_tpu's order-defining operations: the stable argsort compaction, the
+stable (probe, pos) sort of the compacted lanes, and the fold over
+survivors in lane order — scores mode can observe it (engine/monoid.py of
+real_tpu).
 
 The window gather (ops/gather.py, a CUDA kernel on the card) serves the
 three slice fetches: bucket bounds (w=2), tier-1 lane signatures (w=K1)
@@ -439,6 +441,82 @@ def fold_unique(state: MatchState, surv: Survivors, fileid: int,
 
 
 # ---------------------------------------------------------------------------
+# matchAll: device compaction of a step's hits
+# ---------------------------------------------------------------------------
+
+class CompactHits(NamedTuple):
+    """A step's verified matchAll hits compacted to an [H] prefix, so that
+    four packed arrays, not [B, S] x 7 mostly-invalid lanes, cross to the
+    host."""
+    pos: torch.Tensor      # int32 [H]
+    m1: torch.Tensor       # int32 [H] = (row << 4) | k
+    m2: torch.Tensor       # int32 [H] = (frag << 1) | inv
+    score: torch.Tensor    # float32 [H]
+    count: torch.Tensor    # int32 [] — true hit count (may exceed H)
+    overflow: torch.Tensor  # bool [B] — per-read cap overflow, OR'd over
+    #                         every read when count > H
+
+
+def compact_hits(surv: Survivors, cap: int) -> CompactHits:
+    """Compact a step's valid survivor lanes to an [H] prefix
+    (real_tpu/engine/matchstep.py compact_hits).
+
+    Order inside the prefix is free: the host sorts and dedups all hits
+    (driver._sort_dedup_hits). If more than H lanes are valid, every read
+    of the batch is flagged overflow and the driver reruns them all.
+
+    A locus found through several lists gives identical duplicate lanes
+    (same read, pos and strand, hence the same k, frag and score); they
+    are dropped here so the count is ~unique hits. Two routes by lane
+    count: a pairwise [B, S, S] mask for S <= 16, and for the wide rerun
+    ladder (S up to 128) a per-row sort with adjacent-duplicate removal."""
+    B, S = surv.valid.shape
+    H = min(cap, B * S)
+    dev = surv.valid.device
+    if S <= 16:
+        same = ((surv.pos[:, :, None] == surv.pos[:, None, :])
+                & (surv.inv[:, :, None] == surv.inv[:, None, :])
+                & surv.valid[:, :, None] & surv.valid[:, None, :])
+        ar = torch.arange(S, device=dev)
+        earlier = (ar[None, :] < ar[:, None])[None]
+        dup = (same & earlier).any(dim=2)
+        pos_s, inv_s = surv.pos, surv.inv.to(torch.int32)
+        k_s, frag_s, score_s = surv.k, surv.frag, surv.score
+        v = surv.valid & ~dup
+    else:
+        # one int64 key per lane: invalid, then pos (the sentinel on
+        # invalid lanes), then inv. real_tpu sorts the same three keys
+        # unstably; lanes with equal keys are duplicates of one another
+        # and agree in k, frag and score too, so which one survives is
+        # unobservable and the sort need not be stable.
+        inv64 = surv.inv.to(torch.int64)
+        pkey = torch.where(surv.valid, surv.pos.to(torch.int64),
+                           POS_SENTINEL)
+        key = ((~surv.valid).to(torch.int64) << 33) | (pkey << 1) | inv64
+        o = torch.argsort(key, dim=1)
+        key_s = torch.gather(key, 1, o)
+        valid_s = torch.gather(surv.valid, 1, o)
+        pos_s = torch.gather(surv.pos, 1, o)
+        inv_s = torch.gather(inv64, 1, o).to(torch.int32)
+        k_s = torch.gather(surv.k, 1, o)
+        frag_s = torch.gather(surv.frag, 1, o)
+        score_s = torch.gather(surv.score, 1, o)
+        prev_same = torch.zeros_like(valid_s)
+        prev_same[:, 1:] = (key_s[:, 1:] == key_s[:, :-1]) & valid_s[:, 1:]
+        v = valid_s & ~prev_same
+    v = v.reshape(-1)
+    row = torch.arange(B * S, dtype=torch.int32, device=dev) // S
+    m1 = (row << 4) | torch.clamp(k_s.reshape(-1), 0, 15)
+    m2 = (frag_s.reshape(-1) << 1) | inv_s.reshape(-1)
+    # valid lanes first, in lane order (real_tpu's stable sort on ~valid)
+    sel = torch.argsort((~v).to(torch.uint8), stable=True)[:H]
+    count = v.sum().to(torch.int32)
+    return CompactHits(pos=pos_s.reshape(-1)[sel], m1=m1[sel], m2=m2[sel],
+                       score=score_s.reshape(-1)[sel], count=count,
+                       overflow=surv.overflow | (count > H))
+
+
+# ---------------------------------------------------------------------------
 # full step
 # ---------------------------------------------------------------------------
 
@@ -448,13 +526,16 @@ def match_step(index_sig, index_pos, index_bb,
                state: MatchState, fileid: int, epsilon: float,
                *, tables: ScoreTables = None, seedl: int, seedkmax: int,
                totalkmax: int, cand_cap: int, survivor_cap: int,
-               scores: bool, bsearch_steps: int = 0,
+               scores: bool, matchall: bool = False, bsearch_steps: int = 0,
                text_has_n: bool = True):
-    """One (read batch x index shard) matchUnique step. Returns
-    (new_state, survivors). quals=None means FASTA constant quality 30
-    (Pattern.hpp:42-45); `tables` is None when scores=False. Reads whose
-    candidates exceed the caps are flagged in Survivors.overflow for the
-    driver's rerun."""
+    """One (read batch x index shard) step. Returns (new_state,
+    survivors) for matchUnique and (state, CompactHits) for matchAll
+    (matchall=True skips the automaton, and `state` may be None: the hits
+    go to the host for dedup and printing,
+    matchAllImplementation.cpp:99-185). quals=None
+    means FASTA constant quality 30 (Pattern.hpp:42-45); `tables` is None
+    when scores=False. Reads whose candidates exceed the caps are flagged
+    in the overflow mask for the driver's rerun."""
     if quals is None:
         quals = torch.full(codes.shape, 30, dtype=torch.int8,
                            device=codes.device)
@@ -467,4 +548,9 @@ def match_step(index_sig, index_pos, index_bb,
         bsearch_steps=bsearch_steps, text_has_n=text_has_n)
     if scores:
         surv = score_survivors(surv, tw, codes, quals, tables)
+    if matchall:
+        # hit capacity scales with the survivor cap: escalated reruns on
+        # repeat-rich genomes legitimately return hundreds of hits per read
+        B, S = surv.valid.shape
+        return state, compact_hits(surv, cap=max(2 * B, B * S // 2))
     return fold_unique(state, surv, fileid, epsilon, scores=scores), surv

@@ -79,7 +79,7 @@ def test_cli_writes_the_same_file(tmp_path):
                                                use_mesh=False)
 
 
-@pytest.mark.parametrize("flags", [["-u", "0"], ["-shards", "4"],
+@pytest.mark.parametrize("flags", [["-shards", "4"],
                                    ["-l", "48"], ["-ckpt", "c.ckpt"],
                                    ["-trace", "tr"], ["-metrics", "m.json"],
                                    ["-debug", "1"]])

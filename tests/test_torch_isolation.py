@@ -15,6 +15,7 @@ from real_tpu_torch.cli import main as t_main
 from real_tpu_torch.config import RealConfig
 from real_tpu_torch.engine import driver
 from real_tpu_torch.io import reads as reads_io
+from real_tpu_torch.tools import gatherbench
 from tests import ab_util
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,6 +84,10 @@ def test_entry_points_without_device_raise_without_cuda(tmp_path, no_cuda):
     rs = reads_io.parse_reads(reads)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.run_match_unique(cfg, rs, texts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.run_match_all(cfg, rs, texts, as_arrays=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gatherbench.main(["--m", "5000", "--n", "64"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_main.main(["-t", genome, "-p", reads,
                      "-o", str(tmp_path / "o.txt")])
