@@ -12,9 +12,11 @@ stable (probe, pos) sort of the compacted lanes, and the fold over
 survivors in lane order — scores mode can observe it (engine/monoid.py of
 real_tpu).
 
-The window gather (ops/gather.py, a CUDA kernel on the card) serves the
-three slice fetches: bucket bounds (w=2), tier-1 lane signatures (w=K1)
-and the text words under each survivor window (w=kw+1).
+The three table fetches are CUDA kernels on the card (ops/gather.py):
+probe_candidates takes each probe from its bucket bounds to its tier-1
+lane validity, verify_windows takes each survivor lane from its text words
+to its mismatch counts, and the generic window gather serves the bucket
+bounds of the bisection path.
 
 32-bit values are int64 tensors holding the unsigned value; 32-bit tables
 are int32 bit patterns (text/packed.py).
@@ -29,10 +31,10 @@ import torch
 
 from real_tpu_torch.index.signatures import (NUM_LISTS, SigConfig,
                                              read_segments, read_segments_rc)
-from real_tpu_torch.ops.gather import gather_word_windows
+from real_tpu_torch.ops.gather import (gather_word_windows,
+                                       probe_candidates, verify_windows)
 from real_tpu_torch.scoring.scoring import ScoreTables
-from real_tpu_torch.text.packed import (MASK32, is_dontcare_free,
-                                        pair_mismatch_count, u32)
+from real_tpu_torch.text.packed import is_dontcare_free, u32
 
 POS_SENTINEL = 0x7FFFFFFF
 
@@ -106,48 +108,54 @@ def pack_read_words(codes: torch.Tensor):
     return _pack_rows(c, kw), _pack_rows(rc, kw)
 
 
-def _tail_masks(patl: int, nw: int) -> np.ndarray:
-    masks = np.full(nw, 0xFFFFFFFF, dtype=np.uint32)
-    tail = patl - 16 * (nw - 1) if nw else 0
-    if nw and tail < 16:
-        masks[nw - 1] = np.uint32(0xFFFFFFFF) << np.uint32(32 - 2 * tail)
-    return masks
-
-
-def _seed_masks(patl: int, seedl: int, nw: int):
-    """Per-word 2-bit masks selecting the SEED region of the window:
-    straight hits carry the seed at window start [0, seedl); reverse hits
-    at the end [patl-seedl, patl) (RestMatch.hpp:84-89)."""
-    def region(a, b):
-        out = np.zeros(nw, dtype=np.uint32)
-        for w in range(nw):
-            w0, w1 = 16 * w, 16 * w + 16
-            s, e = max(a, w0), min(b, w1)
-            if s < e:
-                m = ((np.uint64(1) << np.uint64(2 * (e - s))) - np.uint64(1))
-                out[w] = np.uint32(m << np.uint64(2 * (w1 - e)))
-        return out
-    return region(0, seedl), region(patl - seedl, patl)
-
-
 # ---------------------------------------------------------------------------
 # candidate generation + verification
 # ---------------------------------------------------------------------------
 
-def _extract_windows(words: torch.Tensor, pos: torch.Tensor,
-                     nw: int) -> List[torch.Tensor]:
-    """nw consecutive 16-base words at arbitrary base offsets pos >= 0
-    (AutoTextArray::getTextWord, AutoTextArray.hpp:122-125): the nw+1
-    aligned words covering each window come from one window gather, then a
-    funnel shift. Words past the table end read 0 (the kernel's contract);
-    those bits lie beyond pos+patl, which the tail masks and fragment
-    containment keep out of every result."""
-    p = pos.to(torch.int64)
-    sh = (p & 15) << 1
-    w = [u32(x) for x in
-         gather_word_windows(words, (p >> 4).to(torch.int32), nw + 1)]
-    return [((w[i] << sh) & MASK32) | (w[i + 1] >> (32 - sh))
-            for i in range(nw)]
+def _bisected_ranges(index_sig, index_bb, probe_sig, bucket_shift: int,
+                     steps: int):
+    """(begin, count) int64 [B, 12] of each probe's exact equal range: the
+    bucket range refined by two bisections of `steps` steps. An unconverged
+    bisection returns the conservative side (see real_tpu's
+    find_survivors)."""
+    B = probe_sig.shape[0]
+    M = index_sig.shape[0] // NUM_LISTS
+    nbuck = index_bb.shape[0] // NUM_LISTS
+    lists = torch.arange(NUM_LISTS, dtype=torch.int64,
+                         device=probe_sig.device)
+
+    def to_list_major(a):    # [B, 12] -> [6, 2B] (strand-major per list)
+        return a.T.reshape(2, NUM_LISTS, B).permute(1, 0, 2) \
+            .reshape(NUM_LISTS, 2 * B)
+
+    def to_probe_major(a):   # [6, 2B] -> [B, 12], probe = strand*6 + list
+        return a.reshape(NUM_LISTS, 2, B).permute(2, 1, 0).reshape(B, -1)
+
+    by_list = to_list_major(probe_sig)
+    h = by_list >> bucket_shift
+    lo, hi = gather_word_windows(
+        index_bb, (h + (lists * nbuck)[:, None]).to(torch.int32), 2)
+    lo, hi = lo.to(torch.int64), hi.to(torch.int64)
+    # clamp every range end to the list's real-entry count: sentinels sort
+    # after every real entry (an all-T probe would otherwise see them all)
+    real_end = index_bb[nbuck - 1 + lists * nbuck][:, None].to(torch.int64)
+    hi = torch.minimum(hi, real_end)
+    list_base = (lists * M)[:, None]
+
+    def bisect(gt: bool):
+        l, h2 = lo, hi
+        for _ in range(steps):
+            mid = (l + h2) >> 1
+            v = u32(index_sig[torch.clamp(mid, max=M - 1) + list_base])
+            live = l < h2
+            go_right = ((v <= by_list) if gt else (v < by_list)) & live
+            l, h2 = (torch.where(go_right, mid + 1, l),
+                     torch.where(~go_right & live, mid, h2))
+        return l, h2
+    begin = bisect(False)[0]
+    end = bisect(True)[1]
+    count = torch.clamp(end - begin, max=2 * M)          # [6, 2B]
+    return to_probe_major(begin), to_probe_major(count)
 
 
 def find_survivors(
@@ -164,86 +172,42 @@ def find_survivors(
     B, patl = codes.shape
     K, S = cand_cap, survivor_cap
     restlen = patl - seedl
-    kw = (patl + 15) // 16
     M = index_sig.shape[0] // NUM_LISTS       # flat [6*M] list layout
     dev = codes.device
-    lists = torch.arange(NUM_LISTS, dtype=torch.int64, device=dev)
 
     sc = SigConfig(seedl)
     probe_sig = compute_probes(codes, seedl)          # [B, 12]
     words_s, words_r = pack_read_words(codes)
 
-    def to_list_major(a):    # [B, 12] -> [6, 2B] (strand-major per list)
-        return a.T.reshape(2, NUM_LISTS, B).permute(1, 0, 2) \
-            .reshape(NUM_LISTS, 2 * B)
-
-    def to_probe_major(a):   # [6, 2B] -> [B, 12], probe = strand*6 + list
-        return a.reshape(NUM_LISTS, 2, B).permute(2, 1, 0).reshape(B, -1)
-
     # ---- phase 1: candidate ranges from the bucket table -------------------
     # bucket width is read back from the table: 2^bits + 1 entries per list
     nbuck = index_bb.shape[0] // NUM_LISTS
-    bucket_bits = (nbuck - 1).bit_length() - 1
-    by_list = to_list_major(probe_sig)
-    h = by_list >> sc.bucket_shift_bits(bucket_bits)
-    lo, hi = gather_word_windows(
-        index_bb, (h + (lists * nbuck)[:, None]).to(torch.int32), 2)
-    lo, hi = lo.to(torch.int64), hi.to(torch.int64)
-    # clamp every range end to the list's real-entry count: sentinels sort
-    # after every real entry (an all-T probe would otherwise see them all)
-    real_end = index_bb[nbuck - 1 + lists * nbuck][:, None].to(torch.int64)
-    hi = torch.minimum(hi, real_end)
-    list_base = (lists * M)[:, None]
-    if bsearch_steps:
-        # exact equal range by two bisections; an unconverged bisection
-        # returns the conservative side (see real_tpu's find_survivors)
-        def bisect(gt: bool):
-            l, h2 = lo, hi
-            for _ in range(bsearch_steps):
-                mid = (l + h2) >> 1
-                v = u32(index_sig[torch.clamp(mid, max=M - 1) + list_base])
-                live = l < h2
-                go_right = ((v <= by_list) if gt else (v < by_list)) & live
-                l, h2 = (torch.where(go_right, mid + 1, l),
-                         torch.where(~go_right & live, mid, h2))
-            return l, h2
-        begin = bisect(False)[0]
-        end = bisect(True)[1]
-    else:
-        begin, end = lo, hi
-
-    count = torch.clamp(end - begin, max=2 * M)          # [6, 2B]
-    begin_pm = to_probe_major(begin)                     # [B, 12]
-    count_pm = to_probe_major(count)
-    lane = torch.arange(K, dtype=torch.int64, device=dev)
+    bucket_shift = sc.bucket_shift_bits((nbuck - 1).bit_length() - 1)
 
     if bsearch_steps:
-        overflow = (count > K).reshape(NUM_LISTS * 2, B).any(dim=0)
+        begin_pm, count_pm = _bisected_ranges(
+            index_sig, index_bb, probe_sig, bucket_shift, bsearch_steps)
+        overflow = (count_pm > K).any(dim=1)
+        lane = torch.arange(K, dtype=torch.int64, device=dev)
         cand_valid = (lane[None, None, :] < count_pm[..., None]) \
             & read_valid[:, None, None]                  # [B, 12, K]
     else:
-        # two-tier lanes: tier 1 fetches K1 consecutive list signatures
-        # per probe with the window gather; probes whose bucket exceeds K1
+        # two-tier lanes: tier 1 takes K1 consecutive list signatures per
+        # probe from its bucket's start, all inside one kernel
+        # (ops/gather.py probe_candidates); probes whose bucket exceeds K1
         # get a slot in a D-slot list and fetch their remaining lanes
-        # there. Tier-1 lanes past the clipped start read neighbour-list
-        # entries; all of them have lane >= count and in_range1 masks them.
-        probe_list = (torch.arange(2 * NUM_LISTS, dtype=torch.int64,
-                                   device=dev) % NUM_LISTS) * M
+        # there.
         K1 = K if K <= 4 else 4
-        lane1 = torch.arange(K1, dtype=torch.int64, device=dev)
-        start = torch.clamp(begin_pm, 0, M - 1) + probe_list[None, :]
-        lane_sig = torch.stack(
-            [u32(x) for x in gather_word_windows(
-                index_sig, start.to(torch.int32), K1)], dim=-1)
-        eq1 = lane_sig == probe_sig[..., None]
-        in_range1 = lane1[None, None, :] < count_pm[..., None]
-        cand1 = in_range1 & eq1 & read_valid[:, None, None]
+        begin_pm, count_pm, lane_sig, cand1 = probe_candidates(
+            index_sig, index_bb, probe_sig, read_valid, bucket_shift, K1)
         if K1 == K:
             cand_valid = cand1
-            last_le = lane_sig[..., K - 1] <= probe_sig
+            last_le = u32(lane_sig[..., K - 1]) <= probe_sig
             overflow = ((count_pm > K) & last_le).any(dim=1)
         else:
             deep = count_pm > K1                          # [B, 12]
+            probe_list = (torch.arange(2 * NUM_LISTS, dtype=torch.int64,
+                                       device=dev) % NUM_LISTS) * M
             D = max(B // 2, 512)
             flat_deep = deep.reshape(-1)
             nprobe = flat_deep.shape[0]
@@ -341,22 +305,13 @@ def find_survivors(
 
     # full-window Hamming distance: XOR + 2-bit pair popcount; the
     # seed-region-masked count reproduces diffcountpair (match.hpp:386)
-    tw = _extract_windows(words, posc, kw)       # kw x [B, S]
-    masks = _tail_masks(patl, kw)
-    smask_s, smask_r = _seed_masks(patl, seedl, kw)
-    patw = torch.where(s_inv[..., None], words_r[:, None, :],
-                       words_s[:, None, :])      # [B, S, KW]
-    totalk = torch.zeros_like(s_pos)
-    seedk = torch.zeros_like(s_pos)
-    for w in range(kw):
-        x = (tw[w] ^ patw[..., w]) & int(masks[w])
-        totalk = totalk + pair_mismatch_count(x)
-        sm = torch.where(s_inv, int(smask_r[w]), int(smask_s[w]))
-        seedk = seedk + pair_mismatch_count(x & sm)
+    tw, totalk, seedk = verify_windows(words, posc, s_inv, words_s, words_r,
+                                       patl, seedl)
     s_valid &= (seedk <= seedkmax) & (totalk <= totalkmax)
+    tw = list(u32(tw).unbind(0))                 # kw x [B, S]
 
     surv = Survivors(valid=s_valid, inv=s_inv, pos=s_pos.to(torch.int32),
-                     frag=s_frag.to(torch.int32), k=totalk.to(torch.int32),
+                     frag=s_frag.to(torch.int32), k=totalk,
                      score=torch.zeros(s_pos.shape, dtype=torch.float32,
                                        device=dev),
                      overflow=overflow)

@@ -15,6 +15,11 @@ import numpy as np
 import torch
 
 
+# a sleep of a few seconds: past it, the enqueue is blocking on the stream's
+# launch queue (about a thousand pending kernels), not running ahead of it
+MAX_SLEEP_CYCLES = 1 << 33
+
+
 def _events(fn, launches: int, sleep_cycles: int):
     """(device ms between two events around `launches` calls, host
     seconds spent enqueuing them). With sleep_cycles > 0 a sleep kernel
@@ -35,7 +40,9 @@ def _events(fn, launches: int, sleep_cycles: int):
 
 def time_ms(fn, launches: int = 10, reps: int = 25):
     """(device ms per call, host-inclusive ms per call): medians over
-    `reps` repetitions of `launches` back-to-back calls, after a warmup."""
+    `reps` repetitions of `launches` back-to-back calls, after a warmup.
+    `launches` calls of fn must fit the stream's launch queue: for a
+    function of hundreds of small kernels, pass launches=1."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -54,6 +61,11 @@ def time_ms(fn, launches: int = 10, reps: int = 25):
             if host_s * 1e3 < 0.5 * s0.elapsed_time(s1):
                 break
             cycles *= 2
+            if cycles > MAX_SLEEP_CYCLES:
+                raise RuntimeError(
+                    "time_ms: the host never got ahead of the sleep kernel; "
+                    f"{launches} calls of fn queue more kernels than the "
+                    "stream takes while it is held (use fewer launches)")
         dev.append(d)
         wall.append(_events(fn, launches, 0)[0])
     return float(np.median(dev)), float(np.median(wall))
