@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through their entry points on CUDA and holds
+Drives the port's three paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates,
-verify_windows, gather_rowsum) against its plain PyTorch version:
+verify_windows, gather_rowsum) against its plain PyTorch version, and holds
+every entry of the native host library (native/readpack.cpp) against its
+plain NumPy version:
 
   matchUnique  bench.py's size: a 4.6 Mbp random genome (E. coli scale),
                100,000 reads x 100 bp, errprob 0.02, seed 12345, k <= 5,
@@ -21,7 +23,8 @@ Phases:
 
   1. card       device name and `nvidia-smi` name/power limit
   2. build      nvcc builds csrc/gather_windows.cu (three entry points) and
-                csrc/gather_rowsum.cu for sm_90a, both at once (timed)
+                csrc/gather_rowsum.cu for sm_90a and the host compiler
+                builds native/readpack.cpp, all at once (timed)
   3. data       both genomes and read sets from tools/simulate (timed;
                 the yeast reads are made after phase 6)
   4. kernel     gather_windows bit-exact against gather_word_windows_ref at
@@ -37,14 +40,27 @@ Phases:
                 at gatherbench's shape for w in 8, 1, 2, 4, 16 and on the
                 matchUnique signature table (110 MB, past the 50 MB L2),
                 with uint32 totals equal to take_sum's; then edge cases
-                (idx < 0, = mw-1, >= mw, mw < w, top bit, int32 wrap)
-  5. unique     load -> run_match_unique -> write_unique, warmup then
-                timed; reads/s, phase seconds, overflow reruns, launches
+                (idx < 0, = mw-1, >= mw, mw < w, top bit, int32 wrap, mw
+                not a multiple of 4, windows that end at mw, a table base
+                that is not 16 B aligned, w 1, 3, 5, 8, 16)
+  5. unique     load -> run_match_unique -> write_unique through the
+                native host entries (reads parsed anew, as with -R 0),
+                warmup then timed; reads/s, phase seconds, overflow reruns,
+                launches
                 of probe_candidates and verify_windows (> 0), truth
                 recall; then the first batch once more with 4x caps, which
                 takes the bisection path: gather_windows launches (> 0),
-                records byte-identical to the timed run's
-  6. parity     the port on the CPU over the first 2,048 reads: records
+                records byte-identical to the timed run's; then the read
+                store (-R 1): seconds to write it and to load it again
+     native     after each path's timed run, every native entry against
+                its plain version on that path's own data, seconds of
+                both: read parser and genome parser (arrays equal), row
+                packer on the path's first plan, record formatter on the
+                full result (bytes equal) and, for matchAll, radix_argsort3
+                on the run's hit columns in sorted order and in a seeded
+                shuffle (permutation equal to three stable argsorts)
+  6. parity     the port on the CPU with the plain host versions
+                (native_host off) over the first 2,048 reads: records
                 byte-identical to the card's records for those reads
   7. matchall   load -> run_match_all(as_arrays=True) -> write_all_arrays,
                 timed after a warmup on one batch-sized prefix; reads/s,
@@ -52,7 +68,8 @@ Phases:
                 batch_hit_overflow_steps, launches of probe_candidates and
                 verify_windows (> 0), truth share; then the bisection
                 pass as in phase 5
-  8. allparity  the port's matchAll on the CPU over the first 2,048 reads:
+  8. allparity  the port's matchAll on the CPU, plain host versions, over
+                the first 2,048 reads:
                 records byte-identical to the card's for those reads, and
                 every matchUnique record of the same CPU run among them
   9. gatherbench  the tool's JSON line at both table sizes; the kernel's
@@ -136,13 +153,25 @@ def card_phase(torch):
 
 
 def build_phase():
+    from real_tpu_torch import native
     from real_tpu_torch.ops import cuda_build
     names = ("gather_windows", "gather_rowsum")
+
+    def build_native():
+        t = time.perf_counter()
+        path = native.library_path()
+        native.get_lib()
+        return path, time.perf_counter() - t
+
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as ex:
+    with ThreadPoolExecutor(len(names) + 1) as ex:
+        host = ex.submit(build_native)
         paths = list(ex.map(cuda_build.library_path, names))
+        host_path, host_s = host.result()
     log(f"[build] {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t:.2f}s (one nvcc per source, in parallel)")
+    log(f"[native] {host_path.name} built from native/readpack.cpp and "
+        f"loaded in {host_s:.2f}s")
     # ptxas -v, one line per kernel: registers and spill bytes
     for n in names:
         kernel = None
@@ -446,22 +475,44 @@ def rowsum_kernel_phase(torch, cases, dev):
         torch.cuda.synchronize()
         if max_abs_err(torch, [got], [gather_rowsum_ref(words, idx, w)]):
             raise AssertionError(f"gather_rowsum int32 wraparound w={w}")
+    # the vector-load path: tables whose length is not a multiple of 4,
+    # windows that end exactly at mw, a base that is not 16 B aligned (the
+    # run-time instance), and a width without a template instance (5)
+    for mw in (1001, 1002, 1003, 4096, 4097):
+        for w in (1, 3, 4, 5, 8, 16):
+            for shift in (0, 1):
+                words = torch.from_numpy(rng.integers(
+                    -2**31, 2**31, mw + shift, dtype=np.int64).astype(
+                        np.int32)).to(dev)[shift:]
+                idx = np.concatenate([
+                    [mw - w - 1, mw - w, mw - w + 1, mw - 4, mw - 1, mw, 0],
+                    rng.integers(-10, mw + 10, 633)])
+                idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+                got = gather_rowsum(words, idx, w)
+                torch.cuda.synchronize()
+                if max_abs_err(torch, [got],
+                               [gather_rowsum_ref(words, idx, w)]):
+                    raise AssertionError(f"gather_rowsum edge case mw={mw} "
+                                         f"w={w} base shift {shift}")
     log("[kernel] gather_rowsum edge cases bit-exact (idx < 0, = mw-1, "
-        ">= mw, mw < w, top-bit words, int32 wraparound)")
+        ">= mw, mw < w, top-bit words, int32 wraparound, mw % 4 of 0..3, "
+        "windows ending at mw, unaligned table base, w of 1, 3, 4, 5, 8, 16)")
     return errs
 
 
 def run_once(cfg, reads_path, device, caps=None):
     """One timed pass of a path through its entry points: (read set,
-    texts, result, record bytes, record count, phase seconds). `caps`
-    overrides the candidate and survivor caps of the first pass."""
+    texts, result, record bytes, record count, phase seconds). The reads
+    are parsed anew (no read store), through the native host entries
+    unless cfg.native_host is off. `caps` overrides the candidate and
+    survivor caps of the first pass."""
     from real_tpu_torch.cli.output import write_all_arrays, write_unique
     from real_tpu_torch.engine import driver
     from real_tpu_torch.io import reads as reads_io
     import torch
     ph = {}
     t0 = t = time.perf_counter()
-    rs = reads_io.parse_reads(reads_path)
+    rs = reads_io.parse_reads(reads_path, use_native=cfg.native_host)
     ph["parse_reads"] = time.perf_counter() - t
     t = time.perf_counter()
     texts = driver.load_texts(cfg, device)
@@ -479,9 +530,11 @@ def run_once(cfg, reads_path, device, caps=None):
     t = time.perf_counter()
     buf = io.BytesIO()
     if cfg.match_unique:
-        records = write_unique(buf, rs, result, texts, cfg.scores)
+        records = write_unique(buf, rs, result, texts, cfg.scores,
+                               cfg.native_host)
     else:
-        records = write_all_arrays(buf, rs, result.cols, texts, cfg.scores)
+        records = write_all_arrays(buf, rs, result.cols, texts, cfg.scores,
+                                   cfg.native_host)
     ph["output"] = time.perf_counter() - t
     ph["total"] = time.perf_counter() - t0
     return rs, texts, result, buf.getvalue(), records, ph
@@ -543,7 +596,120 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
         scores = result.score
     if not np.isfinite(scores).all():
         raise AssertionError(f"{pc.name}: non-finite score on a hit")
+    native_phase(pc, cfg, rs, texts, result, blob)
+    store_phase(pc, r, rs)
     return cfg, result, launches
+
+
+def _timed(fn):
+    t = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t
+
+
+def _same_reads(a, b) -> bool:
+    return (a.fastq == b.fastq and a.quality_offset == b.quality_offset
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("lengths", "codes_flat", "offsets"))
+            and np.array_equal(a.ids.blob, b.ids.blob)
+            and np.array_equal(a.ids.off, b.ids.off))
+
+
+def native_phase(pc: PathCfg, cfg, rs, texts, result, blob):
+    """Every entry of the native host library against its plain version on
+    this path's own data; seconds of both on one line each. `rs`, `result`
+    and `blob` are the timed run's read set, result and record bytes."""
+    from real_tpu_torch.cli.output import write_all_arrays, write_unique
+    from real_tpu_torch.engine import driver
+    from real_tpu_torch.io import fasta, pipeline, reads as reads_io
+    tag = f"[native] {pc.name}:"
+
+    def report(entry, what, nat_s, plain_s):
+        log(f"{tag} {entry} ({what}): native {nat_s:.3f}s, plain "
+            f"{plain_s:.3f}s, equal")
+
+    r, g = cfg.patternfilename, cfg.textfilename
+    nat, nat_s = _timed(lambda: reads_io.parse_reads(r))
+    plain, plain_s = _timed(lambda: reads_io.parse_reads(r, use_native=False))
+    if not (_same_reads(nat, plain) and _same_reads(nat, rs)):
+        raise AssertionError(f"{pc.name}: native and plain read parsers "
+                             "differ")
+    report("fasta_reads_count/fill", f"{os.path.getsize(r)} B, "
+           f"{nat.num_reads} reads", nat_s, plain_s)
+    del nat, plain
+
+    (codes_n, ranges_n), nat_s = _timed(lambda: fasta.parse_genome(g))
+    (codes_p, ranges_p), plain_s = _timed(
+        lambda: fasta.parse_genome(g, use_native=False))
+    if not (np.array_equal(codes_n, codes_p) and ranges_n == ranges_p):
+        raise AssertionError(f"{pc.name}: native and plain genome parsers "
+                             "differ")
+    report("genome_count/fill", f"{os.path.getsize(g)} B, {len(codes_n)} "
+           "bases", nat_s, plain_s)
+    del codes_n, codes_p
+
+    plan = pipeline.make_plans(rs, cfg.batch_size, cfg.seedl)[0]
+    nat, nat_s = _timed(lambda: pipeline._pack_host(rs, plan))
+    plain, plain_s = _timed(
+        lambda: pipeline._pack_host(rs, plan, use_native=False))
+    if not all(np.array_equal(a, b) for a, b in zip(nat, plain)
+               if a is not None):
+        raise AssertionError(f"{pc.name}: native and plain row packers "
+                             "differ")
+    report("pack_rows_2bit", f"one plan, {plan.rows} rows x {plan.patl} bp",
+           nat_s, plain_s)
+
+    if not pc.unique:
+        # the run's sorted order stands for the order the hits arrive in
+        # (batches in read order), the shuffle for the worst case
+        ident = np.arange(len(result.pid))
+        perm = np.random.default_rng(pc.reads_seed).permutation(len(ident))
+        for what, order in (("in sorted order", ident), ("shuffled", perm)):
+            keys = driver._composite_keys(
+                tuple(c[order] for c in result.cols))
+            nat, nat_s = _timed(lambda: driver._radix_argsort3(*keys))
+            plain, plain_s = _timed(lambda: driver._stable_argsort3(*keys))
+            if not np.array_equal(nat, plain):
+                raise AssertionError("radix_argsort3 is not the permutation "
+                                     "of three stable argsorts")
+            if not np.array_equal(order[nat], ident):
+                raise AssertionError("radix_argsort3 does not restore the "
+                                     "run's sorted order")
+            report("radix_argsort3", f"{len(ident)} hits of the run, {what}",
+                   nat_s, plain_s)
+
+    buf = io.BytesIO()
+    if pc.unique:
+        _, plain_s = _timed(lambda: write_unique(
+            buf, rs, result, texts, cfg.scores, use_native=False))
+        _, nat_s = _timed(lambda: write_unique(
+            io.BytesIO(), rs, result, texts, cfg.scores))
+    else:
+        _, plain_s = _timed(lambda: write_all_arrays(
+            buf, rs, result.cols, texts, cfg.scores, use_native=False))
+        _, nat_s = _timed(lambda: write_all_arrays(
+            io.BytesIO(), rs, result.cols, texts, cfg.scores))
+    if buf.getvalue() != blob:
+        raise AssertionError(f"{pc.name}: native and plain formatters print "
+                             "other bytes")
+    nrec = blob.count(b"\n")
+    report("format_records", f"{nrec} records, {len(blob)} B, two formatter "
+           "threads", nat_s, plain_s)
+
+
+def store_phase(pc: PathCfg, r, rs):
+    """The read store (-R 1): one run that parses and writes it, one that
+    loads it again; the loaded arrays must equal the parsed ones."""
+    from real_tpu_torch.io import readstore
+    first, write_s = _timed(lambda: readstore.parse_reads_cached(r))
+    again, load_s = _timed(lambda: readstore.parse_reads_cached(r))
+    if not isinstance(again.codes_flat, np.memmap):
+        raise AssertionError(f"{pc.name}: the second run did not load the "
+                             "read store")
+    if not (_same_reads(first, rs) and _same_reads(again, rs)):
+        raise AssertionError(f"{pc.name}: the read store holds other reads")
+    log(f"[{pc.name}] read store (-R 1): parse and write {write_s:.3f}s, "
+        f"reload {load_s:.3f}s ({pc.num_reads} reads)")
 
 
 BISECT_CAPS = 32        # past the two-tier path's limit of 16 (driver.py)
@@ -593,28 +759,36 @@ def card_records(cfg, rs, texts, result, n) -> bytes:
 
 
 def unique_parity_phase(cfg, r_small, result):
+    """CPU run with the plain host versions against the card's records
+    (written by the native formatter)."""
     t = time.perf_counter()
     rs2, texts_cpu, res_cpu, blob_cpu, unique_cpu, _ = run_once(
-        cfg, r_small, "cpu")
+        dataclasses.replace(cfg, native_host=False), r_small, "cpu")
     if unique_cpu == 0 or blob_cpu != card_records(cfg, rs2, texts_cpu,
                                                    result, PARITY_READS):
         raise AssertionError("CPU records differ from the card's records")
-    log(f"[parity] CPU run on {PARITY_READS} reads: {unique_cpu} records "
-        f"byte-identical to the card's ({time.perf_counter() - t:.1f}s)")
+    log(f"[parity] CPU run (plain host versions) on {PARITY_READS} reads: "
+        f"{unique_cpu} records byte-identical to the card's "
+        f"({time.perf_counter() - t:.1f}s)")
 
 
 def all_parity_phase(cfg, r_small, result):
+    """As unique_parity_phase, for matchAll; the CPU runs use the plain
+    host versions (three stable argsorts, NumPy formatter)."""
     t = time.perf_counter()
-    rs2, texts_cpu, _, blob_cpu, n_cpu, _ = run_once(cfg, r_small, "cpu")
+    plain_cfg = dataclasses.replace(cfg, native_host=False)
+    rs2, texts_cpu, _, blob_cpu, n_cpu, _ = run_once(plain_cfg, r_small,
+                                                     "cpu")
     if n_cpu == 0 or blob_cpu != card_records(cfg, rs2, texts_cpu, result,
                                               PARITY_READS):
         raise AssertionError("CPU matchAll records differ from the card's")
-    ucfg = dataclasses.replace(cfg, match_unique=True)
+    ucfg = dataclasses.replace(plain_cfg, match_unique=True)
     _, _, _, blob_u, n_u, _ = run_once(ucfg, r_small, "cpu")
     all_set = set(blob_cpu.splitlines())
     if n_u == 0 or not set(blob_u.splitlines()) <= all_set:
         raise AssertionError("a matchUnique record is missing from matchAll")
-    log(f"[allparity] CPU run on {PARITY_READS} reads: {n_cpu} matchAll "
+    log(f"[allparity] CPU run (plain host versions) on {PARITY_READS} "
+        f"reads: {n_cpu} matchAll "
         f"records byte-identical to the card's; all {n_u} matchUnique "
         f"records among them ({time.perf_counter() - t:.1f}s)")
 

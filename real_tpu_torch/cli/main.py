@@ -8,6 +8,12 @@ Flags mirror real_tpu's CLI (RealOptions.cpp:142-396), plus -device:
            [-g 0|1] [-similarity x] [-err x] [-trans x] [-gc x]
            [-gcmut_bias x] [-filter_level 0..4] [-v 0|1]
            [-B batch] [-K cand_cap] [-S survivor_cap] [-device cuda|cpu]
+           [-native 0|1]
+
+-R 1 (the default) keeps the parsed reads in a store directory next to the
+read file (io/readstore.py) and loads it on later runs. -native 0 runs the
+host phases through their plain NumPy versions instead of the C++ library
+(native/readpack.cpp), which is built at first use.
 
 This slice runs matchUnique (-u 1) and matchAll (-u 0) with seeds up to 32
 bases on one device and one index shard. -shards N>1, -l over 32, -ckpt,
@@ -48,7 +54,7 @@ def parse_args(argv: List[str]) -> RealConfig:
     }
     bool_flags = {"-u": "match_unique", "-q": "scores",
                   "-R": "rewritepatterns", "-g": "gaps", "-v": "verbose",
-                  "-debug": "debug_checks"}
+                  "-debug": "debug_checks", "-native": "native_host"}
     while i < len(argv):
         a = argv[i]
         if a in flags_with_arg:
@@ -99,11 +105,13 @@ def _check_supported(cfg: RealConfig) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     from real_tpu_torch.cli.output import write_all_arrays, write_unique
     from real_tpu_torch.engine import driver
-    from real_tpu_torch.io import reads as reads_io
+    from real_tpu_torch.io import readstore
 
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
     device = driver.resolve_device(cfg.device)
-    rs = reads_io.parse_reads(cfg.patternfilename, cfg.quality_offset)
+    rs = readstore.parse_reads_cached(
+        cfg.patternfilename, cfg.quality_offset,
+        rewrite=cfg.rewritepatterns, use_native=cfg.native_host)
     cfg.fastq = rs.fastq
     print(f"pattern file is {'FASTQ' if rs.fastq else 'FASTA'}",
           file=sys.stderr)
@@ -120,10 +128,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     with (contextlib.nullcontext(sys.stdout) if cfg.outputfilename == "-"
           else open(cfg.outputfilename, "w")) as out:
         if cfg.match_unique:
-            unique = write_unique(out, rs, result, texts, cfg.scores)
+            unique = write_unique(out, rs, result, texts, cfg.scores,
+                                  cfg.native_host)
             print(f"unique: {unique}", file=sys.stderr)
         else:
-            write_all_arrays(out, rs, result.cols, texts, cfg.scores)
+            write_all_arrays(out, rs, result.cols, texts, cfg.scores,
+                             cfg.native_host)
     return 0
 
 

@@ -55,6 +55,9 @@ class RealConfig:
     build_exchange_dir: str = "" # -exchange <dir>
     watchdog_s: int = 900        # -watchdog <s>
     device: str = "cuda"         # -device cuda|cpu
+    # -native 0: the host phases (parsing, row packing, hit sort, record
+    # formatting) take their plain NumPy versions, not native/readpack.cpp
+    native_host: bool = True
 
     filter_mult: float = dataclasses.field(init=False, default=0.0)
 

@@ -27,6 +27,7 @@ without CUDA; only an explicit device="cpu" runs on the CPU.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import os
 import sys
@@ -36,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from real_tpu_torch import native
 from real_tpu_torch.config import RealConfig
 from real_tpu_torch.engine.matchstep import (CompactHits, initial_state,
                                              match_step)
@@ -112,7 +114,7 @@ def load_texts(cfg: RealConfig, device="cuda",
         paths.append(cfg.textfilename)
     out = []
     for p in paths:
-        codes, ranges = fasta.parse_genome(p)
+        codes, ranges = fasta.parse_genome(p, cfg.native_host)
         for name, c, r in split_oversized(p, codes, ranges, split_limit):
             out.append(TextFile(name=name,
                                 packed=build_packed_text(c, r, dev)))
@@ -216,7 +218,7 @@ def _make_source(cfg: RealConfig, rs: reads_io.ReadSet,
         rs, pipeline.make_plans(
             rs, cfg.batch_size, cfg.seedl, patid_filter,
             warn=lambda m: print(m, file=sys.stderr),
-            max_rows=512 if depth else 0), dev)
+            max_rows=512 if depth else 0), dev, cfg.native_host)
 
 
 def _text_units(cfg: RealConfig, texts: List[TextFile], num_reads: int,
@@ -388,38 +390,76 @@ class MatchAllResult:
         return out
 
 
-def _sort_dedup_hits(cols: tuple) -> tuple:
+def _radix_argsort3(p1: np.ndarray, p2: np.ndarray,
+                    p3: np.ndarray) -> np.ndarray:
+    """Native stable LSD radix argsort by the composite order (p3, p2, p1)
+    (native/readpack.cpp radix_argsort3): the same permutation as three
+    stable np.argsort passes over p1, p2, p3."""
+    lib = native.get_lib()
+    n = len(p1)
+    out = np.empty(n, np.int64)
+    # the contiguous buffers stay alive across the call
+    keys = [np.ascontiguousarray(p, np.uint64) for p in (p1, p2, p3)]
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.radix_argsort3(n, *(a.ctypes.data_as(u64p) for a in keys),
+                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return out
+
+
+def _stable_argsort3(p1: np.ndarray, p2: np.ndarray,
+                     p3: np.ndarray) -> np.ndarray:
+    """Plain version of _radix_argsort3: three stable np.argsort passes in
+    LSD order."""
+    order = np.argsort(p1, kind="stable")
+    order = order[np.argsort(p2[order], kind="stable")]
+    return order[np.argsort(p3[order], kind="stable")]
+
+
+def _composite_keys(cols: tuple) -> Optional[tuple]:
+    """The seven sort keys of hit columns folded into three uint64 keys
+    (p1 least significant): p3 = pid, k; p2 = pos, fileid; p1 = score,
+    inv. frag is a function of (fileid, pos), so it never decides, and
+    score and inv only decide between the strands of one (pid, k, pos,
+    fileid). None when a key is out of the composites' range."""
+    pid, k, pos, fid, _, score, inv = cols
+    if len(pid) and (int(pid.max()) >= 1 << 60 or int(fid.max()) >= 1 << 16
+                     or int(pos.max()) >= 1 << 31):
+        return None
+    # +0.0 so -0.0 keys equal to +0.0 (float compare semantics);
+    # order-preserving f32->u32: flip sign bit (+) / all bits (-)
+    u32 = (score.astype(np.float32) + np.float32(0.0)).view(np.uint32)
+    flip = ((u32.view(np.int32) >> 31).view(np.uint32)
+            & np.uint32(0x7FFFFFFF)) | np.uint32(0x80000000)
+    p1 = (u32 ^ flip).astype(np.uint64)
+    p1 <<= 1
+    p1 |= inv
+    p2 = pos.astype(np.uint64, copy=True)
+    p2 <<= 16
+    p2 |= fid.astype(np.uint64, copy=False)
+    p3 = pid.astype(np.uint64, copy=True)
+    p3 <<= 4
+    p3 |= k.astype(np.uint64, copy=False)
+    return p1, p2, p3
+
+
+def _sort_dedup_hits(cols: tuple, use_native: bool = True) -> tuple:
     """Sort hit columns (pid, k, pos, fileid, frag, score, inv) by all
     seven keys in that order and drop identical neighbours
     (real_tpu/engine/driver.py _sort_dedup_hits).
 
-    The 7-key comparator collapses to three composite-uint64 stable passes
-    (LSD order): frag is a function of (fileid, pos), so it never decides,
-    and score and inv only decide between the strands of one
-    (pid, k, pos, fileid). Keys out of the composites' range take a 7-key
-    lexsort."""
+    The 7-key comparator collapses to three composite-uint64 keys sorted
+    stably in LSD order (_composite_keys). The native radix sort takes
+    the three keys in one call; three stable np.argsort passes are its
+    plain version (use_native=False). Keys out of the composites' range
+    take a 7-key lexsort."""
     pid, k, pos, fid, frag, score, inv = cols
-    if len(pid) and (int(pid.max()) >= 1 << 60 or int(fid.max()) >= 1 << 16
-                     or int(pos.max()) >= 1 << 31):
+    keys = _composite_keys(cols)
+    if keys is None:
         order = np.lexsort((inv, score, frag, fid, pos, k, pid))
+    elif use_native:
+        order = _radix_argsort3(*keys)
     else:
-        # +0.0 so -0.0 keys equal to +0.0 (float compare semantics);
-        # order-preserving f32->u32: flip sign bit (+) / all bits (-)
-        u32 = (score.astype(np.float32) + np.float32(0.0)).view(np.uint32)
-        flip = ((u32.view(np.int32) >> 31).view(np.uint32)
-                & np.uint32(0x7FFFFFFF)) | np.uint32(0x80000000)
-        p1 = (u32 ^ flip).astype(np.uint64)
-        p1 <<= 1
-        p1 |= inv
-        p2 = pos.astype(np.uint64, copy=True)
-        p2 <<= 16
-        p2 |= fid.astype(np.uint64, copy=False)
-        p3 = pid.astype(np.uint64, copy=True)
-        p3 <<= 4
-        p3 |= k.astype(np.uint64, copy=False)
-        order = np.argsort(p1, kind="stable")
-        order = order[np.argsort(p2[order], kind="stable")]
-        order = order[np.argsort(p3[order], kind="stable")]
+        order = _stable_argsort3(*keys)
     pid, k, pos, fid, frag, score, inv = (
         a[order] for a in (pid, k, pos, fid, frag, score, inv))
     keep = np.ones(len(pid), bool)
@@ -495,13 +535,14 @@ class _HitAccumulator:
             ch.score[:c][keep].astype(np.float32),
             (ch.m2[:c][keep] & 1).astype(bool)))
 
-    def finalize(self) -> tuple:
+    def finalize(self, use_native: bool = True) -> tuple:
         """Sorted + deduped hit columns (pid, k, pos, fileid, frag,
         score, inv)."""
         if not self.cols:
             return tuple(np.zeros(0, dt) for dt in HIT_DTYPES)
         return _sort_dedup_hits(tuple(
-            np.concatenate([c[i] for c in self.cols]) for i in range(7)))
+            np.concatenate([c[i] for c in self.cols]) for i in range(7)),
+            use_native)
 
 
 # steps whose hits may be on their way to the host at once (real_tpu keeps
@@ -566,7 +607,7 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     with prog.phase("drain"):
         drain(0)
     with prog.phase("finalize"):
-        cols = acc.finalize()
+        cols = acc.finalize(cfg.native_host)
 
     over_ids = np.flatnonzero(overflow)
     metrics = {"phase_s": dict(prog.phase_s),
@@ -585,7 +626,8 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
             as_arrays=True, _depth=_depth + 1, _index_cache=_index_cache)
         keep = ~np.isin(cols[0], over_ids)
         cols = _sort_dedup_hits(tuple(
-            np.concatenate([a[keep], b]) for a, b in zip(cols, sub.cols)))
+            np.concatenate([a[keep], b]) for a, b in zip(cols, sub.cols)),
+            cfg.native_host)
         _add_rerun_phases(metrics["phase_s"], sub.metrics["phase_s"])
     _print_phases(cfg, metrics["phase_s"])
     result = MatchAllResult(*cols, metrics=metrics)

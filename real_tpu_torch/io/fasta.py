@@ -1,4 +1,6 @@
-"""Host-side genome FASTA parsing (vectorized NumPy).
+"""Host-side genome FASTA parsing: the native C++ parser
+(io/native_io.py) by default, the vectorized NumPy parser of this module
+as its plain version (use_native=False).
 
 Semantics mirror the reference exactly (countReads.cpp):
   * only the uppercase characters A,C,G,T,N are counted/kept — everything
@@ -23,7 +25,8 @@ for _i, _c in enumerate(b"ACGTN"):
     _CODE_TABLE[_c] = _i
 
 
-def parse_genome(path: str) -> Tuple[np.ndarray, List[Tuple[str, int]]]:
+def parse_genome(path: str, use_native: bool = True
+                 ) -> Tuple[np.ndarray, List[Tuple[str, int]]]:
     """Parse a genome FASTA file.
 
     Returns (codes, ranges): codes is a uint8 array of 0..4 base codes
@@ -33,6 +36,9 @@ def parse_genome(path: str) -> Tuple[np.ndarray, List[Tuple[str, int]]]:
     """
     with open(path, "rb") as f:
         buf = np.frombuffer(f.read(), dtype=np.uint8)
+    if use_native and buf.size:
+        from real_tpu_torch.io import native_io
+        return native_io.parse_genome_native(buf)
     return parse_genome_bytes(buf)
 
 

@@ -12,13 +12,14 @@ the device budget) waits for a later slice.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from real_tpu_torch import bitpack
+from real_tpu_torch import bitpack, native
 from real_tpu_torch.io import reads as reads_io
 from real_tpu_torch.text.packed import as_i32_tensor, u32
 
@@ -89,23 +90,39 @@ def make_plans(rs: reads_io.ReadSet, batch_size: int, seedl: int,
     return plans
 
 
-def _pack_host(rs: reads_io.ReadSet, plan: BatchPlan):
+def _pack_host(rs: reads_io.ReadSet, plan: BatchPlan,
+               use_native: bool = True, chunk: int = 1 << 21):
     """One plan's reads as fixed-shape PACKED host arrays:
     (words uint32 [rows, KW], quals int8 | None, valid bool). Codes 4 (N)
     pack as their low bits and are masked via `valid`, like the reference
-    (AutoTextArray.hpp:27-43)."""
+    (AutoTextArray.hpp:27-43).
+
+    The resident upload hands this a whole length bucket as one plan, so
+    the rows go through in bounded chunks straight into the preallocated
+    outputs. The native row packer (native/readpack.cpp pack_rows_2bit)
+    does the shift work; bitpack.pack_rows_2bit is its plain version
+    (use_native=False)."""
     n = len(plan.patids)
     kw = (plan.patl + 15) // 16
     words = np.zeros((plan.rows, kw), np.uint32)
     valid = np.zeros(plan.rows, bool)
     has_q = rs.quals_flat is not None
     quals = np.full((plan.rows, plan.patl), 30, np.int8) if has_q else None
-    if n:
-        codes_all, quals_all = rs.dense_batch(plan.patids)
-        valid[:n] = (codes_all <= 3).all(axis=1)
-        words[:n] = bitpack.pack_rows_2bit(codes_all)
+    lib = native.get_lib() if use_native else None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        codes_all, quals_all = rs.dense_batch(plan.patids[lo:hi])
+        valid[lo:hi] = (codes_all <= 3).all(axis=1)
+        if lib is not None:
+            c = np.ascontiguousarray(codes_all)
+            lib.pack_rows_2bit(c.ctypes.data_as(u8p), hi - lo, plan.patl,
+                               words[lo:hi].ctypes.data_as(u32p), kw)
+        else:
+            words[lo:hi] = bitpack.pack_rows_2bit(codes_all)
         if has_q:
-            quals[:n] = quals_all
+            quals[lo:hi] = quals_all
     return words, quals, valid
 
 
@@ -115,7 +132,7 @@ class ResidentSource:
     codes are re-derived per batch on every pass."""
 
     def __init__(self, rs: reads_io.ReadSet, plans: List[BatchPlan],
-                 device):
+                 device, use_native: bool = True):
         self._slices = []
         by_bucket: dict = {}
         for p in plans:
@@ -123,7 +140,7 @@ class ResidentSource:
         for (patl, rows), group in by_bucket.items():
             big = BatchPlan(patids=np.concatenate([p.patids for p in group]),
                             patl=patl, rows=rows * len(group))
-            words, quals, valid = _pack_host(rs, big)
+            words, quals, valid = _pack_host(rs, big, use_native)
             dw = as_i32_tensor(words, device)
             dq = None if quals is None else torch.from_numpy(quals).to(device)
             dv = torch.from_numpy(valid).to(device)

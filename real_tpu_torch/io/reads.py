@@ -1,4 +1,8 @@
-"""Host-side read (pattern) parsing: FASTA and FASTQ (vectorized NumPy).
+"""Host-side read (pattern) parsing: FASTA and FASTQ.
+
+parse_reads goes through the native C++ parsers (io/native_io.py) unless
+the caller passes use_native=False; the vectorized NumPy parsers of this
+module are their plain versions.
 
 Mirrors the reference parsers:
   * FastAReader.hpp — id = full header line after '>', sequence = all
@@ -37,6 +41,13 @@ class IdView:
     def __init__(self, blob: np.ndarray, off: np.ndarray):
         self.blob = blob                # uint8 concatenated id bytes
         self.off = off                  # int64 [N+1]
+
+    @staticmethod
+    def from_strings(ids: List[str]) -> "IdView":
+        enc = [s.encode("latin-1") for s in ids]
+        off = np.zeros(len(enc) + 1, np.int64)
+        np.cumsum([len(b) for b in enc], out=off[1:])
+        return IdView(np.frombuffer(b"".join(enc), np.uint8), off)
 
     def __len__(self) -> int:
         return len(self.off) - 1
@@ -77,12 +88,20 @@ class ReadSet:
 
     def dense_batch(self, patids: np.ndarray):
         """Dense [B, L] uint8 code matrix (+ qualities) for same-length
-        reads."""
+        reads. A contiguous run of reads (one length bucket covering the
+        file, the common case) is a reshaped view of the flat store, not
+        a gather."""
         length = int(self.lengths[patids[0]])
         if not (self.lengths[patids] == length).all():
             raise ValueError("dense_batch needs reads of one length")
-        idx = self.offsets[patids][:, None] \
-            + np.arange(length, dtype=np.int64)[None, :]
+        o = self.offsets[patids]
+        if len(o) > 1 and (np.diff(o) == length).all():
+            lo, hi = int(o[0]), int(o[-1]) + length
+            quals = None
+            if self.quals_flat is not None:
+                quals = self.quals_flat[lo:hi].reshape(-1, length)
+            return self.codes_flat[lo:hi].reshape(-1, length), quals
+        idx = o[:, None] + np.arange(length, dtype=np.int64)[None, :]
         codes = self.codes_flat[idx]
         quals = None
         if self.quals_flat is not None:
@@ -90,8 +109,12 @@ class ReadSet:
         return codes, quals
 
 
-def parse_reads(path: str, quality_offset: int = 0) -> ReadSet:
-    """Parse a read file ('-' = stdin, RealOptions.cpp:418-426)."""
+def parse_reads(path: str, quality_offset: int = 0,
+                use_native: bool = True) -> ReadSet:
+    """Parse a read file ('-' = stdin, RealOptions.cpp:418-426) with the
+    native C++ parsers; use_native=False takes the NumPy parsers. A FASTQ
+    buffer that is not made of 4-line records goes to the NumPy parser
+    either way, which reports what is wrong with it."""
     if path == "-":
         import sys
         buf = np.frombuffer(sys.stdin.buffer.read(), dtype=np.uint8)
@@ -99,6 +122,13 @@ def parse_reads(path: str, quality_offset: int = 0) -> ReadSet:
         with open(path, "rb") as f:
             buf = np.frombuffer(f.read(), dtype=np.uint8)
     fastq = bool(buf.size) and _first_nonspace(buf) == ord("@")
+    if use_native and buf.size:
+        from real_tpu_torch.io import native_io
+        if not fastq:
+            return native_io.parse_fasta_reads_native(buf)
+        rs = native_io.parse_fastq_native(buf, quality_offset)
+        if rs is not None:
+            return rs
     if fastq:
         return parse_fastq_bytes(buf, quality_offset)
     return parse_fasta_reads_bytes(buf)

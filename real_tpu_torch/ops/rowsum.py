@@ -10,8 +10,17 @@ the table end count as 0. On pal_rowdma's own domain (0 <= idx < mw-256,
 w <= 128) neither rule applies and the two agree lane for lane.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-csrc/gather_rowsum.cu (see its header for the design and what bounds it)
-or raises; the plain PyTorch version serves CPU tensors only.
+csrc/gather_rowsum.cu or raises; the plain PyTorch version serves CPU
+tensors only. The kernel's design (its header has the reasons): w is a
+template parameter for w in 1, 2, 3, 4, 8, 16, a thread serves two lanes
+one grid apart, and for w >= 4 a window is fetched with 16 B aligned uint4
+loads and masked in registers; other widths, and a table whose base is not
+16 B aligned, take a run-time instance with scalar loads. What bounds it is
+not bytes at the streaming rate (3.2 us at the micro-benchmark's shape)
+but the launch floor plus the card's rate for scattered 32 B sectors: on an
+NVIDIA H100 80GB HBM3 at 700 W one table word per lane already costs 4.5 us
+of the ~6.9 us the whole window takes (tools/gathertune.py, rowsum sweep;
+PERF.md).
 """
 
 from __future__ import annotations

@@ -87,3 +87,31 @@ def test_cli_flags_this_slice_lacks_raise(flags):
     with pytest.raises(NotImplementedError):
         t_main.parse_args(["-t", "g.fa", "-p", "r.fa", "-o", "o.txt",
                            *flags])
+
+
+@pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])
+def test_cli_native_off_writes_the_same_file(tmp_path, fastq):
+    """-native 0 (every host phase through its plain NumPy version) and the
+    default (the C++ library) print the same bytes, and both equal
+    real_tpu's."""
+    genome, reads = ab_util.make_inputs(tmp_path, n=20000, numpat=200,
+                                        seed=15, fastq=fastq,
+                                        num_fragments=3)
+    outs = []
+    for flags in ([], ["-native", "0"]):
+        out = tmp_path / f"out{len(outs)}.txt"
+        assert t_main.main(["-device", "cpu", "-t", genome, "-p", reads,
+                            "-o", str(out), "-B", "512", "-R", "0",
+                            *flags]) == 0
+        outs.append(out.read_bytes())
+    assert outs[0].count(b"\n") > 150
+    assert outs[0] == outs[1]
+    assert outs[0].decode("latin-1") == ab_util.run_ours(genome, reads,
+                                                         use_mesh=False)
+
+
+def test_native_flag_reaches_the_config():
+    base = ["-t", "g.fa", "-p", "r.fa", "-o", "o.txt"]
+    assert t_main.parse_args(base).native_host is True
+    assert t_main.parse_args(base + ["-native", "0"]).native_host is False
+    assert t_main.parse_args(base + ["-R", "0"]).rewritepatterns is False

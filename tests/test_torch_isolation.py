@@ -34,6 +34,8 @@ def _port_modules():
 def test_every_module_imports_with_jax_and_real_tpu_poisoned():
     mods = _port_modules()
     assert len(mods) >= 15
+    assert {"real_tpu_torch.native", "real_tpu_torch.io.native_io",
+            "real_tpu_torch.io.readstore"} <= set(mods)
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'real_tpu'):\n"
@@ -92,3 +94,43 @@ def test_entry_points_without_device_raise_without_cuda(tmp_path, no_cuda):
         t_main.main(["-t", genome, "-p", reads,
                      "-o", str(tmp_path / "o.txt")])
     assert not (tmp_path / "o.txt").exists()
+
+
+NATIVE_MODULES = ["real_tpu_torch/native/__init__.py",
+                  "real_tpu_torch/io/native_io.py",
+                  "real_tpu_torch/io/readstore.py"]
+
+
+@pytest.mark.parametrize("rel", NATIVE_MODULES)
+def test_native_host_modules_are_checked_sources(rel):
+    """The modules of the native host pipeline are among the files whose
+    imports are checked above."""
+    assert os.path.join(REPO, rel) in PORT_FILES
+
+
+def test_native_host_path_runs_with_jax_and_real_tpu_poisoned(tmp_path):
+    """The host library builds, loads and parses in a process where jax
+    and real_tpu cannot be imported, and the read store round-trips."""
+    reads = tmp_path / "r.fa"
+    reads.write_text(">r0\nACGTACGTAC\n>r1\nGGTTNACC\n")
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'real_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from real_tpu_torch import native\n"
+        "from real_tpu_torch.io import readstore\n"
+        "assert native.get_lib() is not None\n"
+        f"a = readstore.parse_reads_cached({str(reads)!r})\n"
+        f"b = readstore.parse_reads_cached({str(reads)!r})\n"
+        "assert a.num_reads == b.num_reads == 2\n"
+        "assert list(a.lengths) == [10, 8] == list(b.lengths)\n"
+        "assert type(b.codes_flat).__name__ == 'memmap'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'real_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -249,3 +249,44 @@ def test_cli_u0_writes_the_same_file(tmp_path):
                         "-p", reads, "-o", str(out), "-B", "512"]) == 0
     assert out.read_text() == ab_util.run_ours(genome, reads, unique=False,
                                                use_mesh=False)
+
+
+@pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])
+def test_cli_u0_native_off_writes_the_same_file(tmp_path, fastq):
+    """matchAll through the CLI: the C++ host library (default) and
+    -native 0 (plain NumPy host phases, three stable argsorts, NumPy
+    formatter) print the same bytes, equal to real_tpu's."""
+    genome, reads = ab_util.make_inputs(tmp_path, n=20000, numpat=200,
+                                        patlen=60, seed=19, fastq=fastq,
+                                        num_fragments=3)
+    outs = []
+    for flags in ([], ["-native", "0"]):
+        out = tmp_path / f"out{len(outs)}.txt"
+        assert t_main.main(["-device", "cpu", "-u", "0", "-t", genome,
+                            "-p", reads, "-o", str(out), "-B", "512",
+                            "-R", "0", *flags]) == 0
+        outs.append(out.read_bytes())
+    assert outs[0].count(b"\n") > 150
+    assert outs[0] == outs[1]
+    assert outs[0].decode("latin-1") == ab_util.run_ours(
+        genome, reads, unique=False, use_mesh=False)
+
+
+@pytest.mark.parametrize("use_native", [True, False],
+                         ids=["native", "plain"])
+def test_driver_native_switch_gives_the_same_columns(tmp_path, use_native):
+    genome, reads = _repeat_genome(tmp_path)
+    cols = {}
+    for native_host in (use_native, not use_native):
+        cfg = RealConfig(textfilename=genome, patternfilename=reads,
+                         outputfilename="-", match_unique=False,
+                         scores=True, batch_size=512,
+                         native_host=native_host)
+        rs = reads_io.parse_reads(reads, use_native=native_host)
+        texts = driver.load_texts(cfg, "cpu")
+        cols[native_host] = driver.run_match_all(cfg, rs, texts, "cpu",
+                                                 as_arrays=True).cols
+    assert len(cols[True][0]) > 1000
+    for a, b in zip(cols[True], cols[False]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

@@ -96,6 +96,56 @@ def test_ref_equals_numpy_with_edges(w, mw):
                                   _np_rowsum(words, idx, w))
 
 
+# the widths of the kernel's template instances (1, 3, 8, 16) and one width
+# that takes its run-time instance (5)
+REDESIGN_WIDTHS = [1, 3, 5, 8, 16]
+
+
+@pytest.mark.parametrize("w", REDESIGN_WIDTHS)
+def test_redesign_widths_equal_pal_rowdma_interpret(monkeypatch, w):
+    """The widths the redesigned kernel instantiates, on pal_rowdma's own
+    domain (0 <= idx < mw - 256): uint32 totals of the plain version,
+    pal_rowdma in TPU interpret mode, xla_take8 and numpy agree, with
+    starts at every alignment modulo 4 and modulo 8."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    pb = _pallasbench()
+    rng = np.random.default_rng(100 + w)
+    mw, n = 5120, 2048
+    words = _table(rng, mw)
+    idx = rng.integers(0, mw - 2 * pb.LANE, n).astype(np.int32)
+    idx[:16] = np.arange(16)                    # every start alignment
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=pltpu.InterpretParams()))
+    t2d = jnp.asarray(words.reshape(-1, pb.LANE))
+    pal = int(pb.pal_rowdma(t2d, jnp.asarray(idx), w, slab=2048, ch=1024)())
+    take8 = int(pb.xla_take8(t2d, jnp.asarray(idx), w)())
+    lanes = _ref_u32(words, idx, w)
+    assert pal == take8 == int(lanes.astype(np.uint64).sum())
+    np.testing.assert_array_equal(lanes, _np_rowsum(words, idx, w))
+
+
+@pytest.mark.parametrize("w", REDESIGN_WIDTHS)
+@pytest.mark.parametrize("mw", [1001, 1002, 1003, 1004])
+def test_ref_on_the_vector_load_edges(w, mw):
+    """The cases the kernel's aligned 16 B loads must get right, held on
+    the plain version against numpy: mw with every remainder modulo 4,
+    windows that end exactly at mw, one word before and one past it, and
+    starts at every offset inside an aligned group of four."""
+    rng = np.random.default_rng(7 * mw + w)
+    words = _table(rng, mw)
+    idx = np.concatenate([
+        [mw - w - 1, mw - w, mw - w + 1, mw - 5, mw - 4, mw - 3, mw - 2,
+         mw - 1, mw, 0, 1, 2, 3, 4, 5, 6, 7],
+        rng.integers(-8, mw + 8, 500)]).astype(np.int32)
+    got = _ref_u32(words, idx, w)
+    np.testing.assert_array_equal(got, _np_rowsum(words, idx, w))
+    # a window that ends exactly at mw sums the table's last w words
+    tail = int(words[mw - w:].astype(np.uint64).sum() & 0xFFFFFFFF)
+    assert int(got[1]) == tail
+
+
 def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
     rng = np.random.default_rng(3)
     words = torch.from_numpy(_table(rng, 777).view(np.int32))
@@ -137,7 +187,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mw,w", [(5, 8), (3000, 1), (3000, 8), (3000, 16)])
+@pytest.mark.parametrize("mw,w", [(5, 8), (3000, 1), (3000, 8), (3000, 16),
+                                  (1001, 3), (1002, 8), (1003, 5),
+                                  (1003, 16)])
 def test_kernel_equals_plain_version_on_card(cuda_device, mw, w):
     rng = np.random.default_rng(mw + w)
     words = torch.from_numpy(_table(rng, mw).view(np.int32)).to(cuda_device)
