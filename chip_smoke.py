@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through their entry points on CUDA, holds
-every kernel of those paths (gather_windows, probe_candidates,
-verify_windows, gather_rowsum) against its plain PyTorch version, and holds
-every entry of the native host library (native/readpack.cpp) against its
-plain NumPy version:
+Drives the port's four paths through their entry points on CUDA, holds
+every kernel of those paths (gather_windows, probe_candidates in its 32-bit
+and its 64-bit entry, verify_windows, gather_rowsum) against its plain
+PyTorch version, and holds every entry of the native host library
+(native/readpack.cpp) against its plain NumPy version:
 
   matchUnique  bench.py's size: a 4.6 Mbp random genome (E. coli scale),
                100,000 reads x 100 bp, errprob 0.02, seed 12345, k <= 5,
@@ -16,6 +16,15 @@ plain NumPy version:
                12 Mbp random genome (seed 1202), 1,000,000 reads x 50 bp
                FASTA (errprob 0.02, seed 1203), k <= 3, scores on, default
                batch 32,768
+  chr21        the chr21 configuration (benchmarks/scale.py "chr21"): a
+               46.7 Mbp random genome (seed 2103), 1,000,000 reads x 75 bp
+               FASTQ (errprob 0.02, seed 2104), k <= 4, matchUnique with
+               scores, default batch 32,768; nothing cut. Run (a) as it
+               comes (the planner decides shards and read residency), (b)
+               in 3 forced shards with the reads streamed, (c) under a
+               memory budget of ~4 GB that makes the planner split, (d) as
+               (b) with a checkpoint, stopped after unit 1 and resumed, (e)
+               with wide seeds (-l 48, -l 64) on the first 262,144 reads
   gatherbench  the gather micro-benchmark (tools/gatherbench.py) at its
                default size and with a 110 MB table
 
@@ -31,11 +40,15 @@ Phases:
                 the three fetch shapes of each match path on its real
                 tables; probe_candidates and verify_windows bit-exact
                 against their plain versions at each path's batch shape on
-                its real tables (simulated reads of both strands) and on
-                hand-made edge cases (all-T probes on the sentinel range,
-                bucket bounds at M-1 and beyond, windows in the last text
-                word and past it, pos % 16 == 0, invalid reads, k1 1..4,
-                reads of 16..256 bases); gather_rowsum bit-exact against
+                its real tables (simulated reads of both strands; the
+                chr21 tables also at seedl 48 and 64, through the 64-bit
+                entry) and on hand-made edge cases (all-T probes on the
+                sentinel range, bucket bounds at M-1 and beyond, invalid
+                reads, k1 1..4, and the same through the 64-bit entry at
+                seedl 36, 48 and 64, where the all-T probe is the sentinel
+                and half the signatures have the top bit set; windows in
+                the last text word and past it, pos % 16 == 0, reads of
+                16..256 bases); gather_rowsum bit-exact against
                 gather_rowsum_ref
                 at gatherbench's shape for w in 8, 1, 2, 4, 16 and on the
                 matchUnique signature table (110 MB, past the 50 MB L2),
@@ -72,9 +85,25 @@ Phases:
                 the first 2,048 reads:
                 records byte-identical to the card's for those reads, and
                 every matchUnique record of the same CPU run among them
-  9. gatherbench  the tool's JSON line at both table sizes; the kernel's
+  9. chr21      (a) warmup, then the timed default run with its [native]
+                block and read store as in phase 5; the shard plan, units,
+                the source's mode and the peak of
+                torch.cuda.max_memory_allocated over the bytes live before
+                the run, beside the card's total; truth share >= 0.95;
+                launches of both fused entries > 0; a bisection pass. (b)
+                -shards 3 with a resident-read budget of 1 byte: 3 units,
+                93 streamed batches, records byte-identical to (a)'s. (c)
+                -f chosen so that fracmem x total is ~4 GB: more than one
+                shard planned, records byte-identical to (a)'s, peak at or
+                under the budget. (d) (b) with -ckpt, stopped by an
+                exception from a hook on the match step after unit 1, then
+                run again: 1 unit skipped, (a)'s bytes. (e) -l 48 and -l 64
+                on the first 262,144 reads: launches of the 64-bit
+                probe_candidates entry > 0, truth share, and CPU parity
+                (plain host versions) on the first 2,048 reads
+ 10. gatherbench  the tool's JSON line at both table sizes; the kernel's
                 launches counted over each run
- 10. times      each kernel at each main-path shape: kernel, plain version
+ 11. times      each kernel at each main-path shape: kernel, plain version
                 and one torch yardstick (the chain of index_select calls
                 that fetches the same words for the three match-step
                 entries, take_sum for gather_rowsum), device time (CUDA
@@ -91,6 +120,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -122,12 +152,19 @@ class PathCfg:
     batch: int
     unique: bool
     truth_kmax: int          # reads with at most this many mutations count
+    fastq: bool = False
+    seedl: int = 32
 
 
 UNIQUE = PathCfg("unique", 4_600_000, 12345, 100_000, 100, 12346, 5, 8192,
                  True, 5)
 YEAST = PathCfg("matchall", 12_000_000, 1202, 1_000_000, 50, 1203, 3, 32768,
                 False, 3)
+CHR21 = PathCfg("chr21", 46_700_000, 2103, 1_000_000, 75, 2104, 4, 32768,
+                True, 4, fastq=True)
+WIDE_SEEDLS = (48, 64)
+WIDE_READS = 262_144
+CHR21_BUDGET_BYTES = 4e9     # run (c): fracmem x the card's memory
 ERRPROB = 0.02
 GATHERBENCH = dict(m=2_920_000, n=262_144, w=8)
 GATHER_SRC = "real_tpu_torch/csrc/gather_windows.cu"
@@ -177,9 +214,10 @@ def build_phase():
         kernel = None
         for line in cuda_build.build_logs.get(n, "").splitlines():
             m = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+_kernel)"
-                          r"(?:ILi(\d+)E)?", line)
+                          r"(?:I(?:N\w+?(Sig\d+)E)?Li(\d+)E)?", line)
             if m:
-                kernel = m.group(2) + (f"<{m.group(3)}>" if m.group(3) else "")
+                targs = ", ".join(g for g in m.group(3, 4) if g)
+                kernel = m.group(2) + (f"<{targs}>" if targs else "")
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m:
@@ -200,19 +238,21 @@ def make_genome(tmp: str, pc: PathCfg):
     return g, fasta.parse_genome(g)[0]
 
 
-def make_reads(tmp: str, pc: PathCfg, codes):
-    """(reads path, parity reads path, warmup reads path, truth reads) of
-    one path."""
+def make_reads(tmp: str, pc: PathCfg, codes, extra=()):
+    """(reads path, parity reads path, warmup reads path, one path per
+    prefix length in `extra`, truth reads) of one path."""
     from real_tpu_torch.tools import simulate
     t = time.perf_counter()
     truth = simulate.generate_reads(codes, pc.num_reads, pc.patl, ERRPROB,
-                                    False, seed=pc.reads_seed)
+                                    pc.fastq, seed=pc.reads_seed)
     tr = time.perf_counter() - t
     paths = []
+    ext = "fq" if pc.fastq else "fa"
     for tag, rows in (("reads", truth), ("parity", truth[:PARITY_READS]),
-                      ("warmup", truth[:pc.batch])):
-        paths.append(os.path.join(tmp, f"{pc.name}_{tag}.fa"))
-        simulate.write_reads(rows, paths[-1], False)
+                      ("warmup", truth[:pc.batch]),
+                      *((f"first{n}", truth[:n]) for n in extra)):
+        paths.append(os.path.join(tmp, f"{pc.name}_{tag}.{ext}"))
+        simulate.write_reads(rows, paths[-1], pc.fastq)
     log(f"[data] {pc.name}: {pc.num_reads} reads x {pc.patl} bp over "
         f"{pc.genome_n} bp in {time.perf_counter() - t:.1f}s "
         f"(generate_reads {tr:.1f}s)")
@@ -223,7 +263,7 @@ def path_config(pc: PathCfg, g: str, r: str):
     from real_tpu_torch.config import RealConfig
     return RealConfig(textfilename=g, patternfilename=r, outputfilename="-",
                       batch_size=pc.batch, totalkmax=pc.totalkmax,
-                      match_unique=pc.unique)
+                      match_unique=pc.unique, seedl=pc.seedl)
 
 
 def path_index(cfg, texts, num_reads):
@@ -360,9 +400,10 @@ def _outputs_err(torch, got, want) -> int:
         if g.shape != r.shape or g.dtype != r.dtype:
             raise AssertionError(f"{tuple(g.shape)} {g.dtype} != "
                                  f"{tuple(r.shape)} {r.dtype}")
-        if g.numel():
-            err = max(err, int((g.to(torch.int64) - r.to(torch.int64))
-                               .abs().max()))
+        if g.numel() and not torch.equal(g, r):
+            # 64-bit lanes can differ by more than an int64 holds
+            err = max(err, 1, int((g.to(torch.int64) - r.to(torch.int64))
+                                  .abs().clamp(max=2**62).max()))
     return err
 
 
@@ -403,6 +444,21 @@ def fused_kernel_phase(torch, cases, totalkmax, dev):
             torch.cuda.synchronize()
             if _outputs_err(torch, got, ref(*args)):
                 raise AssertionError(f"probe_candidates edge case k1={k1}")
+    for seedl in (36, 48, 64):
+        for k1 in (1, 2, 3, 4):
+            sig, bb, shift = fusedcases.edge_tables_wide(rng, seedl)
+            probe, valid = fusedcases.edge_probes_wide(rng, sig, 700, seedl)
+            for nb in (700, 0):
+                args = (*fusedcases.tensors(
+                    (sig.reshape(-1), bb, probe[:nb], valid[:nb]), dev),
+                    shift, k1)
+                fn, ref = _fused_pair("probe_candidates")
+                got = fn(*args)
+                torch.cuda.synchronize()
+                if got[2].dtype != torch.int64 \
+                        or _outputs_err(torch, got, ref(*args)):
+                    raise AssertionError("probe_candidates wide edge case "
+                                         f"seedl={seedl} k1={k1}")
     for patl in (16, 36, 50, 100, 256):
         arrays = fusedcases.verify_inputs(rng, 3000, 300, 8, patl)
         for nb in (300, 0):
@@ -416,7 +472,9 @@ def fused_kernel_phase(torch, cases, totalkmax, dev):
     log("[kernel] probe_candidates edge cases bit-exact (k1 1..4: all-T "
         "probes on the sentinel range, bucket bounds at M-1, M, beyond, "
         "negative and descending, top-bit signatures, invalid reads, empty "
-        "batch); verify_windows edge cases bit-exact (reads of 16, 36, 50, "
+        "batch; the same through the 64-bit entry at seedl 36, 48 and 64, "
+        "where half the seedl-64 signatures have the sign bit set); "
+        "verify_windows edge cases bit-exact (reads of 16, 36, 50, "
         "100, 256 bases: pos 0, pos % 16 == 0, the last text word, past "
         "the text end, both strands, empty batch)")
     return errs, outs
@@ -511,6 +569,12 @@ def run_once(cfg, reads_path, device, caps=None):
     from real_tpu_torch.io import reads as reads_io
     import torch
     ph = {}
+    on_card = str(device) == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     t0 = t = time.perf_counter()
     rs = reads_io.parse_reads(reads_path, use_native=cfg.native_host)
     ph["parse_reads"] = time.perf_counter() - t
@@ -524,8 +588,10 @@ def run_once(cfg, reads_path, device, caps=None):
     else:
         result = driver.run_match_all(cfg, rs, texts, device, cand_cap=caps,
                                       survivor_cap=caps, as_arrays=True)
-    if device == "cuda":
+    if on_card:
         torch.cuda.synchronize()
+        # device bytes of this run at their peak, over what was live before
+        result.metrics["peak_bytes"] = torch.cuda.max_memory_allocated() - base
     ph["match"] = time.perf_counter() - t
     t = time.perf_counter()
     buf = io.BytesIO()
@@ -582,6 +648,7 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
            f", batch_hit_overflow_steps: {m['batch_hit_overflow_steps']}"))
     log(f"{tag} launches: {launches}; gather_windows in the overflow "
         f"reruns, by w: {reruns}")
+    log(f"{tag} {run_account(torch, m)}")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{pc.name} path made no {name} launch")
@@ -598,7 +665,22 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
         raise AssertionError(f"{pc.name}: non-finite score on a hit")
     native_phase(pc, cfg, rs, texts, result, blob)
     store_phase(pc, r, rs)
-    return cfg, result, launches
+    return cfg, result, launches, blob
+
+
+def run_account(torch, m) -> str:
+    """The unit loop's account of a run: plan, units, source, memory."""
+    plans = ", ".join(
+        f"{p['shards']} shard(s)" + (" serial" if p["serial_build"] else "")
+        + f" cap {p['bucket_bits_cap']} bits" for p in m["plans"])
+    return (f"plan: {plans}; units {m['units']} (dispatched "
+            f"{m['units_dispatched']}, skipped {m['units_skipped']}); reads "
+            f"{'resident' if m['source_resident'] else 'streamed'} "
+            f"({m['resident_read_bytes']} B resident, "
+            f"{m['streamed_batches']} streamed batches); planner reserved "
+            f"{m['reserved_bytes']} B; peak device memory of the run "
+            f"{m['peak_bytes']} B over the bytes live before it, card total "
+            f"{torch.cuda.mem_get_info()[1]} B")
 
 
 def _timed(fn):
@@ -634,8 +716,8 @@ def native_phase(pc: PathCfg, cfg, rs, texts, result, blob):
     if not (_same_reads(nat, plain) and _same_reads(nat, rs)):
         raise AssertionError(f"{pc.name}: native and plain read parsers "
                              "differ")
-    report("fasta_reads_count/fill", f"{os.path.getsize(r)} B, "
-           f"{nat.num_reads} reads", nat_s, plain_s)
+    report(("fastq" if rs.fastq else "fasta") + "_reads_count/fill",
+           f"{os.path.getsize(r)} B, {nat.num_reads} reads", nat_s, plain_s)
     del nat, plain
 
     (codes_n, ranges_n), nat_s = _timed(lambda: fasta.parse_genome(g))
@@ -793,6 +875,138 @@ def all_parity_phase(cfg, r_small, result):
         f"records among them ({time.perf_counter() - t:.1f}s)")
 
 
+class _StopAfterUnit(Exception):
+    """Raised by the hook that stops run (d) after its first unit."""
+
+
+def _require_same_records(tag, blob, blob_a):
+    if blob != blob_a:
+        raise AssertionError(f"chr21 ({tag}): records differ from the "
+                             "default run's")
+
+
+def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
+    """Runs (b), (c) and (d) of the chr21 path against run (a)'s records."""
+    from real_tpu_torch.engine import driver
+    from real_tpu_torch.ops import gather
+    steps_per_unit = -(-pc.num_reads // pc.batch)
+
+    # (b) three forced shards, reads streamed
+    cfg_b = dataclasses.replace(cfg, index_shards=3, resident_reads_bytes=1)
+    gather.reset_launch_counts()
+    _, _, res, blob, records, ph = run_once(cfg_b, r, dev)
+    m = res.metrics
+    log(f"[chr21] (b) -shards 3, reads streamed: {ph['total']:.3f}s = "
+        f"{pc.num_reads / ph['total']:.1f} reads/s ({records} records); "
+        "phases: " + " ".join(f"{k}={v:.3f}s" for k, v in ph.items())
+        + "; match phases: " + " ".join(
+            f"{k}={v:.3f}s" for k, v in m["phase_s"].items()))
+    log(f"[chr21] (b) {run_account(torch, m)}; launches probe_candidates "
+        f"{gather.probe_candidates.launches}, verify_windows "
+        f"{gather.verify_windows.launches}")
+    if m["units_dispatched"] != 3 or m["source_resident"] \
+            or m["streamed_batches"] < 3 * steps_per_unit:
+        raise AssertionError("chr21 (b): not 3 units over a streaming source")
+    _require_same_records("b", blob, blob_a)
+
+    # (c) the planner under a budget that binds
+    total = torch.cuda.mem_get_info()[1]
+    fracmem = CHR21_BUDGET_BYTES / total
+    _, _, res, blob, records, ph = run_once(
+        dataclasses.replace(cfg, fracmem=fracmem), r, dev)
+    m = res.metrics
+    log(f"[chr21] (c) -f {fracmem:.5f} (budget {CHR21_BUDGET_BYTES:.0f} B of "
+        f"{total}): {ph['total']:.3f}s = {pc.num_reads / ph['total']:.1f} "
+        f"reads/s ({records} records); match phases: " + " ".join(
+            f"{k}={v:.3f}s" for k, v in m["phase_s"].items()))
+    log(f"[chr21] (c) {run_account(torch, m)}")
+    if m["plans"][0]["shards"] <= 1 or m["units_dispatched"] != m["units"]:
+        raise AssertionError("chr21 (c): the planner did not split")
+    if m["peak_bytes"] > CHR21_BUDGET_BYTES:
+        raise AssertionError(f"chr21 (c): peak {m['peak_bytes']} B over the "
+                             f"budget of {CHR21_BUDGET_BYTES:.0f} B")
+    _require_same_records("c", blob, blob_a)
+
+    # (d) (b) with a checkpoint, stopped after unit 1, then resumed
+    ckpt = os.path.join(tmp, "chr21.ckpt")
+    cfg_d = dataclasses.replace(cfg_b, checkpoint=ckpt)
+    real_step, calls = driver.match_step, [0]
+
+    def stopping_step(*a, **kw):
+        calls[0] += 1
+        if calls[0] > steps_per_unit:
+            raise _StopAfterUnit()
+        return real_step(*a, **kw)
+    driver.match_step = stopping_step
+    try:
+        run_once(cfg_d, r, dev)
+    except _StopAfterUnit:
+        pass
+    else:
+        raise AssertionError("chr21 (d): the hook did not stop the run")
+    finally:
+        driver.match_step = real_step
+    if not os.path.exists(ckpt):
+        raise AssertionError("chr21 (d): no checkpoint after unit 1")
+    size = os.path.getsize(ckpt)
+    _, _, res, blob, records, ph = run_once(cfg_d, r, dev)
+    m = res.metrics
+    log(f"[chr21] (d) stopped after unit 1 ({calls[0] - 1} steps, checkpoint "
+        f"of {size} B), resumed: {m['units_skipped']} unit skipped, "
+        f"{m['units_dispatched']} dispatched, {ph['total']:.3f}s "
+        f"({records} records)")
+    if m["units_skipped"] != 1 or m["units_dispatched"] != 2 \
+            or os.path.exists(ckpt):
+        raise AssertionError("chr21 (d): the resumed run did not skip "
+                             "exactly unit 1 or left its checkpoint")
+    _require_same_records("d", blob, blob_a)
+
+
+def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
+    """Run (e): -l 48 and -l 64 on the first WIDE_READS reads; launches of
+    the 64-bit entry, truth share, CPU parity on PARITY_READS reads.
+    Returns {path name: launches}."""
+    from real_tpu_torch.ops import gather
+    launches = {}
+    for seedl in WIDE_SEEDLS:
+        wpc = dataclasses.replace(pc, name=f"chr21_l{seedl}", seedl=seedl,
+                                  num_reads=WIDE_READS)
+        cfg = path_config(wpc, g, r_wide)
+        gather.reset_launch_counts()
+        rs, texts, res, blob, records, ph = run_once(cfg, r_wide, dev)
+        launches[wpc.name] = {
+            "probe_candidates": gather.probe_candidates.launches_wide,
+            "verify_windows": gather.verify_windows.launches}
+        share = truth_share(wpc, res, truth[:WIDE_READS])
+        log(f"[chr21] (e) -l {seedl}: {WIDE_READS} reads in "
+            f"{ph['total']:.3f}s ({records} records); match phases: "
+            + " ".join(f"{k}={v:.3f}s" for k, v in
+                       res.metrics["phase_s"].items())
+            + f"; launches of the 64-bit probe_candidates entry "
+            f"{gather.probe_candidates.launches_wide} of "
+            f"{gather.probe_candidates.launches}, verify_windows "
+            f"{gather.verify_windows.launches}; truth share {share:.5f}; "
+            f"overflow_rerun_reads {res.metrics['overflow_rerun_reads']}")
+        if gather.probe_candidates.launches_wide <= 0 \
+                or gather.probe_candidates.launches_wide \
+                != gather.probe_candidates.launches:
+            raise AssertionError(f"chr21 -l {seedl}: the probes did not all "
+                                 "go through the 64-bit entry")
+        if share < 0.5 or records == 0:
+            raise AssertionError(f"chr21 -l {seedl}: truth share {share}")
+        t = time.perf_counter()
+        rs2, texts_cpu, _, blob_cpu, n_cpu, _ = run_once(
+            dataclasses.replace(cfg, native_host=False), r_small, "cpu")
+        if n_cpu == 0 or blob_cpu != card_records(cfg, rs2, texts_cpu, res,
+                                                  PARITY_READS):
+            raise AssertionError(f"chr21 -l {seedl}: CPU records differ from "
+                                 "the card's")
+        log(f"[chr21] (e) -l {seedl}: CPU run (plain host versions) on "
+            f"{PARITY_READS} reads: {n_cpu} records byte-identical to the "
+            f"card's ({time.perf_counter() - t:.1f}s)")
+    return launches
+
+
 def gatherbench_phase(big_m):
     """The tool's JSON line at both table sizes; kernel launches counted
     over each run."""
@@ -814,11 +1028,12 @@ def gatherbench_phase(big_m):
     return launches
 
 
-def _sector_bytes(torch, table_len, start, w) -> int:
-    """32 B for every distinct 32 B sector under the w-word windows at
-    `start` (words past the table end touch nothing)."""
+def _sector_bytes(torch, table_len, start, w, per_sector=8) -> int:
+    """32 B for every distinct 32 B sector under the w-entry windows at
+    `start` (entries past the table end touch nothing); a sector holds 8
+    32-bit words or 4 64-bit signatures."""
     win = start.reshape(-1)[:, None] + torch.arange(w, device=start.device)
-    return 32 * int(torch.unique(win[win < table_len] // 8).numel())
+    return 32 * int(torch.unique(win[win < table_len] // per_sector).numel())
 
 
 def _bound_bytes(torch, table, idx, w, out_words) -> int:
@@ -832,26 +1047,33 @@ def _bound_bytes(torch, table, idx, w, out_words) -> int:
 def _probe_reads(torch, args, begin):
     """(bucket-table word indices [2, B, 12], real-end indices [12],
     signature window starts [B, 12]) that probe_candidates reads."""
+    from real_tpu_torch.index.signatures import logical_shift_right
     index_sig, index_bb, probe_sig, _, shift, _ = args
     M, nbuck = index_sig.shape[0] // 6, index_bb.shape[0] // 6
     lists = torch.arange(12, device=probe_sig.device) % 6
-    bi = ((probe_sig >> shift) + lists * nbuck).clamp(0, 6 * nbuck - 1)
+    h = logical_shift_right(probe_sig, shift) \
+        if index_sig.dtype == torch.int64 else probe_sig >> shift
+    bi = (h + lists * nbuck).clamp(0, 6 * nbuck - 1)
     start = begin.to(torch.int64).clamp(0, M - 1) + lists * M
     return torch.stack([bi, bi + 1]), lists * nbuck + nbuck - 1, start
 
 
 def _probe_bound_bytes(torch, args, out) -> int:
     """probe_candidates' bytes: probes (8 B) and validity (1 B per read)
-    in; begin, count, k1 lane signatures and k1 flags out; the distinct
-    sectors of the bucket table and of the signature lists."""
+    in; begin, count, k1 lane signatures (4 B each, 8 B wide) and k1 flags
+    out; the distinct sectors of the bucket table and of the signature
+    lists."""
     index_sig, index_bb, probe_sig, valid, _, k1 = args
     bounds, real_end, start = _probe_reads(torch, args, out[0])
     words = torch.cat([bounds.reshape(-1), real_end])
     bb_bytes = 32 * int(torch.unique(
         words[words < index_bb.shape[0]] // 8).numel())
     nprobe = probe_sig.numel()
-    return 8 * nprobe + valid.numel() + nprobe * (8 + 5 * k1) + bb_bytes \
-        + _sector_bytes(torch, index_sig.shape[0], start, k1)
+    sig_bytes = index_sig.element_size()
+    return 8 * nprobe + valid.numel() \
+        + nprobe * (8 + (sig_bytes + 1) * k1) + bb_bytes \
+        + _sector_bytes(torch, index_sig.shape[0], start, k1,
+                        32 // sig_bytes)
 
 
 def _verify_starts(torch, args):
@@ -933,7 +1155,8 @@ def times_phase(torch, sites, errs, fused, ferrs, fouts, launches_by_path,
                      _select_chain(torch, args[0], start, args[5]))
             nbytes = _probe_bound_bytes(torch, args, fouts[name])
             shape = (f"n={args[2].numel()} probes k1={args[5]} tables="
-                     f"{args[1].shape[0]}+{args[0].shape[0]} words")
+                     f"{args[1].shape[0]} words + {args[0].shape[0]} "
+                     f"signatures of {args[0].element_size()} B")
         else:
             kw = fouts[name][0].shape[0]
             chain = (_select_chain(torch, args[0],
@@ -941,7 +1164,9 @@ def times_phase(torch, sites, errs, fused, ferrs, fouts, launches_by_path,
             nbytes = _verify_bound_bytes(torch, args, fouts[name])
             shape = (f"n={args[1].numel()} lanes kw={kw} table="
                      f"{args[0].shape[0]} words")
-        row(f"{entry}/{path}", GATHER_SRC, GATHER_REPLACES,
+        wide = entry == "probe_candidates" and args[0].dtype == torch.int64
+        row(f"{entry}{'_wide' if wide else ''}/{path}", GATHER_SRC,
+            GATHER_REPLACES,
             launches_by_path[path][entry], ferrs[name], shape, nbytes,
             lambda: fn(*args), lambda: ref(*args),
             lambda: [f() for f in chain], "index_select chain",
@@ -961,49 +1186,70 @@ def times_phase(torch, sites, errs, fused, ferrs, fouts, launches_by_path,
 
 
 def drive(torch, dev) -> list:
-    """Phases 3-10 on `dev`; returns the kernels' JSON entries."""
+    """Phases 3-11 on `dev`; returns the kernels' JSON entries."""
     from real_tpu_torch.engine import driver
-    unique, yeast = UNIQUE, YEAST
+    unique, yeast, chr21 = UNIQUE, YEAST, CHR21
+    wide = [dataclasses.replace(chr21, name=f"chr21_l{seedl}", seedl=seedl)
+            for seedl in WIDE_SEEDLS]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         gu, codes_u = make_genome(tmp, unique)
         ga, codes_a = make_genome(tmp, yeast)
+        gc21, codes_c = make_genome(tmp, chr21)
         ru, ru_small, ru_warm, truth_u = make_reads(tmp, unique, codes_u)
 
         sites, fused, big_table = [], [], None
-        for pc, g, codes in ((unique, gu, codes_u), (yeast, ga, codes_a)):
+        for pc, g, codes in ((unique, gu, codes_u), (yeast, ga, codes_a),
+                             (chr21, gc21, codes_c),
+                             *((w, gc21, codes_c) for w in wide)):
             cfg = path_config(pc, g, ru)
             texts = driver.load_texts(cfg, dev)
             index = path_index(cfg, texts, pc.num_reads)
             rng = np.random.default_rng(pc.genome_seed)
-            sites += site_inputs(torch, pc, texts[0].packed, index, rng)
+            if pc.seedl == 32:
+                sites += site_inputs(torch, pc, texts[0].packed, index, rng)
             fused += fused_inputs(torch, pc, codes, texts[0].packed, index,
                                   rng)
-            if pc.unique:
+            if pc is unique:
                 big_table = index.sig        # 27,599,904 words, 110 MB
+        del index, texts
         errs = gather_kernel_phase(torch, sites, dev)
         ferrs, fouts = fused_kernel_phase(
-            torch, fused, {pc.name: pc.totalkmax for pc in (unique, yeast)},
-            dev)
+            torch, fused, {pc.name: pc.totalkmax
+                           for pc in (unique, yeast, chr21, *wide)}, dev)
         rcases = rowsum_cases(torch, big_table, dev)
         rerrs = rowsum_kernel_phase(torch, rcases, dev)
 
         # the yeast read set (a million Python objects) is made after the
         # matchUnique path, so that path's host phases run as before
-        cfg_u, res_u, launches_u = path_phase(
+        cfg_u, res_u, launches_u, _ = path_phase(
             torch, unique, gu, ru, ru_warm, truth_u, dev)
         bisection_phase(torch, unique, cfg_u, ru_warm, res_u, launches_u, dev)
         unique_parity_phase(cfg_u, ru_small, res_u)
         del res_u, truth_u
         ra, ra_small, ra_warm, truth_a = make_reads(tmp, yeast, codes_a)
-        cfg_a, res_a, launches_a = path_phase(
+        cfg_a, res_a, launches_a, _ = path_phase(
             torch, yeast, ga, ra, ra_warm, truth_a, dev)
         bisection_phase(torch, yeast, cfg_a, ra_warm, res_a, launches_a, dev)
         all_parity_phase(cfg_a, ra_small, res_a)
         del res_a, truth_a
+
+        rc, rc_small, rc_warm, rc_wide, truth_c = make_reads(
+            tmp, chr21, codes_c, extra=(WIDE_READS,))
+        cfg_c, res_c, launches_c, blob_c = path_phase(
+            torch, chr21, gc21, rc, rc_warm, truth_c, dev)
+        bisection_phase(torch, chr21, cfg_c, rc_warm, res_c, launches_c, dev)
+        del res_c
+        chr21_runs_phase(torch, chr21, cfg_c, rc, blob_c, tmp, dev)
+        del blob_c
+        launches_w = chr21_wide_phase(torch, chr21, gc21, rc_wide, rc_small,
+                                      truth_c, dev)
+        del truth_c
+
         rlaunches = gatherbench_phase(big_table.numel())
         return times_phase(
             torch, sites, errs, fused, ferrs, fouts,
-            {unique.name: launches_u, yeast.name: launches_a},
+            {unique.name: launches_u, yeast.name: launches_a,
+             chr21.name: launches_c, **launches_w},
             rcases, rerrs, rlaunches)
 
 
@@ -1019,8 +1265,8 @@ def main() -> int:
     name, _ = card_phase(torch)
     build_phase()
     kernels = drive(torch, "cuda")
-    log("kernels: gather_windows, probe_candidates, verify_windows, "
-        "gather_rowsum")
+    log("kernels: gather_windows, probe_candidates (32-bit and 64-bit "
+        "entries), verify_windows, gather_rowsum")
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

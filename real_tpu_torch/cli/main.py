@@ -8,16 +8,26 @@ Flags mirror real_tpu's CLI (RealOptions.cpp:142-396), plus -device:
            [-g 0|1] [-similarity x] [-err x] [-trans x] [-gc x]
            [-gcmut_bias x] [-filter_level 0..4] [-v 0|1]
            [-B batch] [-K cand_cap] [-S survivor_cap] [-device cuda|cpu]
-           [-native 0|1]
+           [-native 0|1] [-shards n] [-ckpt path] [-ckpt_every units]
+           [-watchdog seconds] [-debug 0|1]
 
 -R 1 (the default) keeps the parsed reads in a store directory next to the
 read file (io/readstore.py) and loads it on later runs. -native 0 runs the
 host phases through their plain NumPy versions instead of the C++ library
 (native/readpack.cpp), which is built at first use.
 
-This slice runs matchUnique (-u 1) and matchAll (-u 0) with seeds up to 32
-bases on one device and one index shard. -shards N>1, -l over 32, -ckpt,
--trace, -metrics, -exchange and -debug 1 raise NotImplementedError.
+Runs matchUnique (-u 1) and matchAll (-u 0) with seeds up to 64 bases on
+one device. -f bounds the share of the device's memory the index may
+fill: the planner (parallel/plan.py) splits a text's index into as many
+shards as that needs, and -shards N forces the count; reads beyond the
+resident budget are streamed once per shard. -ckpt saves the state after
+every -ckpt_every index units and a later run with the same arguments
+resumes there; -watchdog aborts a run whose device fetch hangs; -debug 1
+checks every step's scores and the result's invariants.
+
+-trace, -metrics and -exchange raise NotImplementedError: run metrics, the
+profiler trace and the multi-process build are not ported yet, and neither
+is a run over several devices.
 """
 
 from __future__ import annotations
@@ -81,22 +91,14 @@ def parse_args(argv: List[str]) -> RealConfig:
 
 
 def _check_supported(cfg: RealConfig) -> None:
-    """Raise for the options this slice of the port does not run yet."""
+    """Raise for the options the port does not run yet."""
     missing = []
-    if cfg.index_shards > 1:
-        missing.append("-shards N>1 (index sharding)")
-    if cfg.seedl > 32:
-        missing.append("-l over 32 (wide seeds)")
-    if cfg.checkpoint:
-        missing.append("-ckpt (checkpoint/resume)")
     if cfg.trace:
         missing.append("-trace (profiler trace)")
     if cfg.metrics_json:
         missing.append("-metrics (run metrics file)")
     if cfg.build_exchange_dir:
         missing.append("-exchange (multi-process build)")
-    if cfg.debug_checks:
-        missing.append("-debug 1 (invariant checks)")
     if missing:
         raise NotImplementedError(
             "not ported to real_tpu_torch yet: " + ", ".join(missing))

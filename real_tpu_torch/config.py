@@ -19,7 +19,8 @@ class RealConfig:
     totalkmax: int = 5           # -e, max total mismatches (cap 15)
     seedl: int = 32              # -l, seed length (<=64, multiple of 4)
     match_unique: bool = True    # -u 1 unique-best / -u 0 all hits
-    fracmem: float = 0.75        # -f, fraction of memory budget
+    fracmem: float = 0.75        # -f, fraction of the device's memory that
+                                 # the shard planner may fill
     scores: bool = True          # -q, quality/odds-ratio scoring
     quality_offset: int = 0      # -Q, 0 = autodetect
     rewritepatterns: bool = True # -R, cached packed read store
@@ -43,17 +44,31 @@ class RealConfig:
     # keeps the result exact.
     cand_cap: int = 8            # max candidates examined per (read, probe)
     survivor_cap: int = 8        # max verified hits folded per read per step
-    # Flags the CLI parses for parity with real_tpu's; this port raises
-    # NotImplementedError for the ones it does not run yet (cli/main.py).
-    index_shards: int = 0        # index shards (0 = plan; only 1 is run)
-    checkpoint: str = ""         # -ckpt <path>
-    checkpoint_every: int = 1
+    # keep packed reads device-resident across shard passes up to this
+    # many bytes (0 = a share of the device's memory, engine/driver.py
+    # _make_source); above it the streaming source (io/pipeline.py)
+    # re-uploads the reads for every index shard
+    resident_reads_bytes: int = 0
+    index_shards: int = 0        # -shards: 0 = plan from the -f memory
+                                 # budget (parallel/plan.py); shards run as
+                                 # sequential passes over all reads
+    checkpoint: str = ""         # -ckpt <path>: save (state or hits, unit
+                                 # cursor) after completed index units and
+                                 # resume from it
+    checkpoint_every: int = 1    # -ckpt_every: units between saves (a save
+                                 # fetches the per-batch state to the host)
+    debug_checks: bool = False   # -debug 1: scan every step's scores for
+                                 # NaN (a device sync per step) and check
+                                 # the finished result's invariants
+    verbose: bool = False        # -v: stderr progress + phase timers
+    watchdog_s: int = 900        # -watchdog <s>: abort loudly if one
+                                 # blocking device fetch exceeds this many
+                                 # seconds (utils/watchdog.py); 0 disables
+    # Flags the CLI parses for parity with real_tpu's and raises
+    # NotImplementedError for (cli/main.py): not ported yet.
     trace: str = ""              # -trace <dir>
     metrics_json: str = ""       # -metrics <path>
-    debug_checks: bool = False   # -debug 1
-    verbose: bool = False        # -v: stderr progress + phase timers
     build_exchange_dir: str = "" # -exchange <dir>
-    watchdog_s: int = 900        # -watchdog <s>
     device: str = "cuda"         # -device cuda|cpu
     # -native 0: the host phases (parsing, row packing, hit sort, record
     # formatting) take their plain NumPy versions, not native/readpack.cpp

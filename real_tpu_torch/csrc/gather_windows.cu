@@ -5,7 +5,8 @@
 //                         generic window gather; the bisection path's bucket
 //                         bounds go through it)
 //   probe_candidates_i32  per probe: bucket bounds -> candidate range ->
-//                         tier-1 list signatures -> lane validity
+//   probe_candidates_i64  tier-1 list signatures -> lane validity, on 32-bit
+//                         signature lists and on wide (64-bit) ones
 //   verify_windows_i32    per survivor lane: text words -> funnel shift ->
 //                         XOR with the read -> masked mismatch counts
 //
@@ -49,6 +50,13 @@
 //   independent probes in flight per thread (6% faster than 1, and 4 are
 //   16% slower than 2: same tool). With K1 == 4 a probe's lanes and flags
 //   leave as one 16 B and one 4 B store.
+//   The wide entry (seedl 36..64) is the same kernel over 64-bit list
+//   entries: real_tpu fetches those lanes with jnp.take (its Pallas kernel
+//   is 32-bit only). Its list bytes double (K1 entries span 32 B, so a
+//   window at a random start touches ~1.9 sectors instead of ~1.4) and its
+//   lanes leave as two 16 B stores; the two dependent misses stay what
+//   bounds it. Signatures compare as unsigned 64-bit words, so a set top
+//   bit (seedl 64, the all-ones sentinel) orders as in real_tpu's planes.
 //
 // verify_windows: its index and output bytes. The text table (1-3 MB for
 //   a bacterial or yeast genome) stays in L2, so the kw+1 word loads cost
@@ -93,6 +101,29 @@ __device__ __forceinline__ int32_t load_or_zero(const int32_t* __restrict__ t,
                                                 int64_t q, int64_t mw) {
   return q < mw ? __ldg(t + q) : 0;
 }
+
+__device__ __forceinline__ uint64_t load_or_zero(
+    const unsigned long long* __restrict__ t, int64_t q, int64_t mw) {
+  return q < mw ? __ldg(t + q) : 0ull;
+}
+
+// A signature list's element: how it is stored, loaded and compared.
+struct Sig32 {
+  using Stored = int32_t;           // uint32 bit patterns
+  using Value = uint32_t;
+  static __device__ __forceinline__ Value load(const Stored* __restrict__ t,
+                                               int64_t q, int64_t n) {
+    return static_cast<Value>(load_or_zero(t, q, n));
+  }
+};
+struct Sig64 {
+  using Stored = int64_t;           // uint64 bit patterns
+  using Value = uint64_t;
+  static __device__ __forceinline__ Value load(const Stored* __restrict__ t,
+                                               int64_t q, int64_t n) {
+    return load_or_zero(reinterpret_cast<const unsigned long long*>(t), q, n);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // gather_windows
@@ -165,31 +196,34 @@ gather_windows_any_kernel(const int32_t* __restrict__ words, int64_t mw,
 // probe_candidates
 // ---------------------------------------------------------------------------
 
-template <int K1>
+template <typename Sig, int K1>
 __global__ void __launch_bounds__(kThreads)
-probe_candidates_kernel(const int32_t* __restrict__ sig_tab, int64_t m,
+probe_candidates_kernel(const typename Sig::Stored* __restrict__ sig_tab,
+                        int64_t m,
                         const int32_t* __restrict__ bb, int64_t nbuck,
                         const int64_t* __restrict__ probe,
                         const uint8_t* __restrict__ read_valid,
                         int64_t nprobe, int shift,
                         int32_t* __restrict__ begin_out,
                         int32_t* __restrict__ count_out,
-                        int32_t* __restrict__ lane_out,
+                        typename Sig::Stored* __restrict__ lane_out,
                         uint8_t* __restrict__ cand_out) {
+  using Value = typename Sig::Value;
+  using Stored = typename Sig::Stored;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * (kThreads * kProbes)
                        + threadIdx.x;
   const int64_t nbb = kLists * nbuck;
   const int64_t nsig = kLists * m;
 
   // stage 1: the probes
-  uint32_t sig[kProbes];
+  Value sig[kProbes];
   int64_t list[kProbes];
   bool valid[kProbes];
 #pragma unroll
   for (int j = 0; j < kProbes; ++j) {
     const int64_t i = base + j * kThreads;
     const bool live = i < nprobe;
-    sig[j] = live ? static_cast<uint32_t>(__ldg(probe + i)) : 0u;
+    sig[j] = live ? static_cast<Value>(__ldg(probe + i)) : Value(0);
     list[j] = (i % (2 * kLists)) % kLists;
     valid[j] = live && __ldg(read_valid + i / (2 * kLists)) != 0;
   }
@@ -198,8 +232,9 @@ probe_candidates_kernel(const int32_t* __restrict__ sig_tab, int64_t m,
   int64_t lo[kProbes], hi[kProbes], real_end[kProbes];
 #pragma unroll
   for (int j = 0; j < kProbes; ++j) {
+    // a logical shift: 32-bit values by <= 32, 64-bit patterns by 1..63
     const int64_t h = static_cast<int64_t>(static_cast<uint64_t>(sig[j])
-                                           >> shift);      // shift <= 32
+                                           >> shift);
     const int64_t b = clamp64(narrow32(h + list[j] * nbuck), 0, nbb - 1);
     lo[j] = __ldg(bb + b);
     hi[j] = load_or_zero(bb, b + 1, nbb);
@@ -209,7 +244,7 @@ probe_candidates_kernel(const int32_t* __restrict__ sig_tab, int64_t m,
   // stage 3: K1 list signatures from the clipped range start. Lanes that
   // run into the neighbouring list have lane >= count and are masked.
   int64_t count[kProbes];
-  uint32_t lane[kProbes][K1];
+  Value lane[kProbes][K1];
 #pragma unroll
   for (int j = 0; j < kProbes; ++j) {
     const int64_t end = hi[j] < real_end[j] ? hi[j] : real_end[j];
@@ -219,8 +254,7 @@ probe_candidates_kernel(const int32_t* __restrict__ sig_tab, int64_t m,
         narrow32(clamp64(lo[j], 0, m - 1) + list[j] * m), 0, nsig - 1);
 #pragma unroll
     for (int k = 0; k < K1; ++k)
-      lane[j][k] = static_cast<uint32_t>(load_or_zero(sig_tab, start + k,
-                                                      nsig));
+      lane[j][k] = Sig::load(sig_tab, start + k, nsig);
   }
 
   // stage 4: outputs, probe-major
@@ -234,16 +268,24 @@ probe_candidates_kernel(const int32_t* __restrict__ sig_tab, int64_t m,
 #pragma unroll
     for (int k = 0; k < K1; ++k)
       cand[k] = (k < count[j] && lane[j][k] == sig[j] && valid[j]) ? 1 : 0;
-    if (K1 == 4) {
+    if constexpr (K1 == 4 && sizeof(Stored) == 4) {
       reinterpret_cast<int4*>(lane_out)[i] = make_int4(
           static_cast<int32_t>(lane[j][0]), static_cast<int32_t>(lane[j][1]),
           static_cast<int32_t>(lane[j][2]), static_cast<int32_t>(lane[j][3]));
       reinterpret_cast<uchar4*>(cand_out)[i] =
           make_uchar4(cand[0], cand[1], cand[2], cand[3]);
+    } else if constexpr (K1 == 4) {
+      longlong2* out2 = reinterpret_cast<longlong2*>(lane_out) + 2 * i;
+      out2[0] = make_longlong2(static_cast<long long>(lane[j][0]),
+                               static_cast<long long>(lane[j][1]));
+      out2[1] = make_longlong2(static_cast<long long>(lane[j][2]),
+                               static_cast<long long>(lane[j][3]));
+      reinterpret_cast<uchar4*>(cand_out)[i] =
+          make_uchar4(cand[0], cand[1], cand[2], cand[3]);
     } else {
 #pragma unroll
       for (int k = 0; k < K1; ++k) {
-        lane_out[i * K1 + k] = static_cast<int32_t>(lane[j][k]);
+        lane_out[i * K1 + k] = static_cast<Stored>(lane[j][k]);
         cand_out[i * K1 + k] = cand[k];
       }
     }
@@ -340,10 +382,40 @@ extern "C" int gather_windows_i32(const void* words, int64_t mw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// sig_tab: int32 [6*m]; bb: int32 [6*nbuck]; probe: int64 [nprobe] (nprobe a
-// multiple of 12, probe = strand*6 + list within a read); read_valid: bool
-// [nprobe/12]. Out: begin, count int32 [nprobe]; lanes int32 [nprobe, k1];
-// cand uint8 [nprobe, k1].
+// sig_tab: [6*m] signature lists; bb: int32 [6*nbuck]; probe: int64 [nprobe]
+// (nprobe a multiple of 12, probe = strand*6 + list within a read);
+// read_valid: bool [nprobe/12]. Out: begin, count int32 [nprobe]; lanes
+// [nprobe, k1] of the lists' type; cand uint8 [nprobe, k1].
+template <typename Sig>
+static int launch_probe_candidates(const void* sig_tab, int64_t m, const void* bb,
+                            int64_t nbuck, const void* probe,
+                            const void* read_valid, int64_t nprobe, int shift,
+                            int k1, void* begin, void* count, void* lanes,
+                            void* cand, void* stream) {
+  using Stored = typename Sig::Stored;
+  const unsigned int blocks = blocks_for(nprobe, kThreads * kProbes);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PROBE_CASE(K1)                                                       \
+  case K1:                                                                   \
+    probe_candidates_kernel<Sig, K1><<<blocks, kThreads, 0, s>>>(            \
+        static_cast<const Stored*>(sig_tab), m,                              \
+        static_cast<const int32_t*>(bb), nbuck,                              \
+        static_cast<const int64_t*>(probe),                                  \
+        static_cast<const uint8_t*>(read_valid), nprobe, shift,              \
+        static_cast<int32_t*>(begin), static_cast<int32_t*>(count),          \
+        static_cast<Stored*>(lanes), static_cast<uint8_t*>(cand));           \
+    break;
+  switch (k1) {
+    PROBE_CASE(1) PROBE_CASE(2) PROBE_CASE(3) PROBE_CASE(4)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PROBE_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 32-bit signature lists: sig_tab and lanes int32, probes unsigned 32-bit
+// values in int64, 0 <= shift <= 32.
 extern "C" int probe_candidates_i32(const void* sig_tab, int64_t m,
                                     const void* bb, int64_t nbuck,
                                     const void* probe, const void* read_valid,
@@ -353,25 +425,25 @@ extern "C" int probe_candidates_i32(const void* sig_tab, int64_t m,
   if (nprobe <= 0) return 0;
   if (m < 1 || nbuck < 1 || shift < 0 || shift > 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned int blocks = blocks_for(nprobe, kThreads * kProbes);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PROBE_CASE(K1)                                                       \
-  case K1:                                                                   \
-    probe_candidates_kernel<K1><<<blocks, kThreads, 0, s>>>(                 \
-        static_cast<const int32_t*>(sig_tab), m,                             \
-        static_cast<const int32_t*>(bb), nbuck,                              \
-        static_cast<const int64_t*>(probe),                                  \
-        static_cast<const uint8_t*>(read_valid), nprobe, shift,              \
-        static_cast<int32_t*>(begin), static_cast<int32_t*>(count),          \
-        static_cast<int32_t*>(lanes), static_cast<uint8_t*>(cand));          \
-    break;
-  switch (k1) {
-    PROBE_CASE(1) PROBE_CASE(2) PROBE_CASE(3) PROBE_CASE(4)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef PROBE_CASE
-  return static_cast<int>(cudaGetLastError());
+  return launch_probe_candidates<Sig32>(sig_tab, m, bb, nbuck, probe,
+                                        read_valid, nprobe, shift, k1, begin,
+                                        count, lanes, cand, stream);
+}
+
+// Wide signature lists (seedl 36..64): sig_tab and lanes int64 holding the
+// 64-bit patterns, probes int64 patterns, 1 <= shift <= 63.
+extern "C" int probe_candidates_i64(const void* sig_tab, int64_t m,
+                                    const void* bb, int64_t nbuck,
+                                    const void* probe, const void* read_valid,
+                                    int64_t nprobe, int shift, int k1,
+                                    void* begin, void* count, void* lanes,
+                                    void* cand, void* stream) {
+  if (nprobe <= 0) return 0;
+  if (m < 1 || nbuck < 1 || shift < 1 || shift > 63)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_probe_candidates<Sig64>(sig_tab, m, bb, nbuck, probe,
+                                        read_valid, nprobe, shift, k1, begin,
+                                        count, lanes, cand, stream);
 }
 
 // words: int32 [mw]; pos: int64 [n]; inv: bool [n]; words_s, words_r: int64

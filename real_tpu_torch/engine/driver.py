@@ -1,5 +1,4 @@
-"""End-to-end matchUnique and matchAll drivers: one device, one index
-shard per text.
+"""End-to-end matchUnique and matchAll drivers on one device.
 
 Counterpart of real_tpu/engine/driver.py (run_match_unique and
 run_match_all on their sequential single-device path). Loop structure
@@ -7,18 +6,30 @@ mirrors the reference (matchUniqueImplementation.cpp:1082-1489):
 
     for each text file:                 (getFileList, ".fa" suffix)
       build packed text + fragment ranges
-      build sorted signature lists      (one shard over the whole text)
-      for each read length-bucket batch:
-        match_step(...)                 (state persists per read)
+      plan index shards from the -f memory budget (parallel/plan.py)
+      for each shard (a "unit"):        (memory-bounded block streaming)
+        build sorted signature lists
+        for each read length-bucket batch:
+          match_step(...)               (state persists per read)
     final pass: format records in read order
 
-matchUnique keeps per-read best-hit state on the device across files;
-matchAll compacts each step's hits on the device and sorts and dedups all
-of them on the host. Reads whose candidates overflow the caps are rerun
-from scratch with 16x caps against the cached index — the fixed-shape
-answer to std::equal_range's unbounded ranges. Index sharding, the memory
-planner, streaming reads, checkpoints and several devices wait for later
-slices of the port.
+Units run in ascending window order, one after the other into the same
+per-batch states: the scored matchUnique fold is order-defined, so any
+other order could change records. Shard windows are disjoint, so matchAll
+sees each hit once. At most two units are in flight (one when the plan
+serializes builds, which frees a unit's lists before the next build).
+Reads stay on the device across units when their packed bytes fit the
+resident budget; otherwise io/pipeline.py streams them once per unit.
+
+matchUnique keeps per-read best-hit state on the device across files and
+units; matchAll compacts each step's hits on the device and sorts and
+dedups all of them on the host. Reads whose candidates overflow the caps
+are rerun from scratch with 16x caps — the fixed-shape answer to
+std::equal_range's unbounded ranges; a single-unit run keeps its index for
+those reruns. With -ckpt the state goes to disk after completed units and
+a later run skips them (engine/checkpoint.py); every blocking device fetch
+sits under the watchdog (utils/watchdog.py). Several devices wait for a
+later slice of the port.
 
 Entry points run on the card: `device` defaults to "cuda" and raises
 without CUDA; only an explicit device="cpu" runs on the CPU.
@@ -39,17 +50,31 @@ import torch
 
 from real_tpu_torch import native
 from real_tpu_torch.config import RealConfig
-from real_tpu_torch.engine.matchstep import (CompactHits, initial_state,
-                                             match_step)
-from real_tpu_torch.index.build import build_index, pick_bucket_bits
+from real_tpu_torch.engine import checkpoint as ckpt_mod
+from real_tpu_torch.engine.matchstep import (CompactHits, MatchState,
+                                             initial_state, match_step)
+from real_tpu_torch.index.build import (build_index, pick_bucket_bits,
+                                        shard_windows)
 from real_tpu_torch.io import fasta, pipeline, reads as reads_io
+from real_tpu_torch.parallel import plan
 from real_tpu_torch.scoring.scoring import Scoring, score_tables
 from real_tpu_torch.text.packed import PackedText, build_packed_text
+from real_tpu_torch.utils.watchdog import watchdog
 
 MAX_FRAGMENTS_PER_FILE = 1 << 16   # UniqueMatchInfo fragmentbits
-# bucket-table width cap of a single resident shard (real_tpu's plan for
-# one shard, parallel/plan.py)
+# bucket-table width cap of a pipelined shard plan (parallel/plan.py)
 BUCKET_BITS_CAP = 25
+# share of the device's memory that packed reads may hold resident when
+# cfg.resident_reads_bytes is 0 — real_tpu's share, a policy and not a
+# measurement: a FASTQ read of 100 bases packs to 129 B, so an 80 GB card
+# keeps ~79M of them and streams only beyond that
+RESIDENT_READS_SHARE = 0.12
+# A match step's transient device bytes per survivor lane and read base:
+# tools/planprobe.py measured 51.9-54.0 on an NVIDIA H100 80GB HBM3 (peak
+# of a scored step over the bytes live before it, 32,768 reads of 50, 75
+# and 100 bases, 8 lanes; PERF.md); kept with a margin. The planner
+# reserves them beside the texts and the resident reads.
+STEP_BYTES_PER_LANE_BASE = 60
 # largest per-text base count: positions are int32 on the device
 TEXT_SPLIT_LIMIT = 2**31 - 64
 
@@ -136,6 +161,64 @@ def _bsearch_steps_static(num_windows: int, cand_cap: int,
     return min(-(-steps // 4) * 4 + extra, 30)
 
 
+def _shard_bounds(num_windows: int, num_shards: int) -> List[Tuple[int, int]]:
+    """[start, end) window ranges of a text's shards, 16-aligned starts."""
+    per = shard_windows(num_windows, num_shards)
+    return [(s, min(s + per, num_windows))
+            for s in range(0, num_windows, per)]
+
+
+def _text_bytes(text: PackedText) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (text.words, text.nbits, text.ncum, text.nb16, text.ncum16))
+
+
+def _step_workspace_bytes(plans, survivor_cap: int) -> int:
+    """Transient device bytes of the largest match step of `plans`."""
+    lanes = max((p.rows * p.patl for p in plans), default=0) * survivor_cap
+    return lanes * STEP_BYTES_PER_LANE_BASE
+
+
+def _plan_shards(cfg: RealConfig, text: PackedText, dev: torch.device,
+                 reserved_bytes: int = 0, streaming: bool = False,
+                 reads: int = 0) -> plan.StreamShardPlan:
+    """-shards override or the -f fracmem memory planner. reserved_bytes
+    must cover ALL device-resident texts (split oversized files keep every
+    sub-text uploaded for the whole run), the resident reads and the match
+    step's workspace.
+
+    The pass-minimizing serial-build plan (plan_index_shards_streaming)
+    applies when passes are expensive relative to builds — always when
+    reads re-stream per pass (streaming=True), and for resident reads when
+    the estimated per-pass match time dwarfs a serial shard's build time."""
+    if cfg.index_shards > 0:
+        return plan.StreamShardPlan(shards=cfg.index_shards,
+                                    serial_build=False,
+                                    bucket_bits_cap=BUCKET_BITS_CAP)
+    num_windows = max(text.n - cfg.seedl + 1, 0)
+    reserved = reserved_bytes or _text_bytes(text)
+    model = plan.model_for(cfg.seedl)
+    hbm = plan.hbm_bytes_per_device(dev)
+    splan = plan.plan_index_shards_streaming(
+        num_windows, cfg.fracmem, reserved_bytes=reserved, hbm_bytes=hbm,
+        model=model)
+    if splan.serial_build and not streaming:
+        match_pass_s = reads * plan.MATCH_S_PER_READ_PASS
+        build_shard_s = (num_windows / max(splan.shards, 1)) \
+            * plan.BUILD_S_PER_WINDOW
+        if match_pass_s <= 3 * build_shard_s:
+            splan = None
+    elif not splan.serial_build:
+        splan = None
+    if splan is not None:
+        return splan
+    return plan.StreamShardPlan(
+        shards=plan.plan_index_shards(num_windows, cfg.fracmem,
+                                      reserved_bytes=reserved,
+                                      hbm_bytes=hbm, model=model),
+        serial_build=False, bucket_bits_cap=BUCKET_BITS_CAP)
+
+
 @dataclasses.dataclass
 class MatchResult:
     """Final per-read state (host) and the run's metrics."""
@@ -145,7 +228,8 @@ class MatchResult:
     fileid: np.ndarray
     errs: np.ndarray
     score: np.ndarray
-    # phase_s (seconds per phase), overflow_rerun_reads
+    # phase_s (seconds per phase), overflow_rerun_reads, and the loop's
+    # account of itself (_loop_metrics)
     metrics: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
@@ -190,10 +274,6 @@ def _check_run(cfg: RealConfig, texts: List[TextFile],
                device) -> torch.device:
     """The run's device, after the checks every entry point shares."""
     dev = resolve_device(device)
-    if cfg.seedl > 32:
-        raise NotImplementedError("seeds over 32 bases are not ported yet")
-    if cfg.index_shards > 1:
-        raise NotImplementedError("index sharding is not ported yet")
     for tf in texts:
         if tf.packed.words.device.type != dev.type:
             raise ValueError(f"text {tf.name} is on {tf.packed.words.device},"
@@ -212,42 +292,188 @@ def _step_kwargs(cfg: RealConfig, cand_cap: int, survivor_cap: int) -> dict:
 
 def _make_source(cfg: RealConfig, rs: reads_io.ReadSet,
                  patid_filter: Optional[np.ndarray], depth: int,
-                 dev: torch.device) -> pipeline.ResidentSource:
-    """Device-resident read batches; overflow reruns use 512-row batches."""
-    return pipeline.ResidentSource(
-        rs, pipeline.make_plans(
-            rs, cfg.batch_size, cfg.seedl, patid_filter,
-            warn=lambda m: print(m, file=sys.stderr),
-            max_rows=512 if depth else 0), dev, cfg.native_host)
+                 dev: torch.device) -> pipeline.BatchSource:
+    """Length-bucketed batch source: resident (one bulk upload, reused
+    across shard passes) when the packed reads fit the budget, else the
+    streaming pipeline (io/pipeline.py). Overflow reruns use 512-row
+    batches."""
+    budget = cfg.resident_reads_bytes
+    if budget <= 0:
+        budget = int(RESIDENT_READS_SHARE * plan.hbm_bytes_per_device(dev))
+    return pipeline.make_source(
+        rs, cfg.batch_size, cfg.seedl, dev, patid_filter,
+        warn=lambda m: print(m, file=sys.stderr),
+        resident_budget_bytes=budget, max_rows=512 if depth else 0,
+        use_native=cfg.native_host)
 
 
-def _text_units(cfg: RealConfig, texts: List[TextFile], num_reads: int,
-                cand_cap: int, prog: _Progress, index_cache: Dict):
-    """Yield (fileid, text, index, bsearch_steps) for every usable text,
-    one index shard each. A single-text run parks its index in
-    index_cache, so the overflow reruns reuse it instead of rebuilding."""
+def _record_event(dev: torch.device) -> Optional["torch.cuda.Event"]:
+    """An event after everything queued so far on the device's current
+    stream; None on the CPU, where every call has finished on return."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+def _wait_event(cfg: RealConfig, ev, what: str) -> None:
+    if ev is not None:
+        with watchdog(cfg.watchdog_s, what):
+            ev.synchronize()
+
+
+class _DispatchWindow:
+    """Bounds the dispatched batches in flight in streaming-read mode:
+    without it the host queues a whole unit ahead of the device, and every
+    uploaded batch stays allocated until its steps have run, defeating the
+    streaming source's memory bound (io/pipeline.py). Waiting for the
+    event recorded `depth` batches ago keeps (depth + prefetch) batches
+    alive at most while upload, compute and the host loop still overlap."""
+
+    def __init__(self, cfg: RealConfig, dev: torch.device, enabled: bool,
+                 depth: int = 4):
+        self.cfg, self.dev = cfg, dev
+        self.enabled = enabled and dev.type == "cuda"
+        self.depth = depth
+        self._window: List = []
+
+    def push(self) -> None:
+        if not self.enabled:
+            return
+        self._window.append(_record_event(self.dev))
+        if len(self._window) > self.depth:
+            _wait_event(self.cfg, self._window.pop(0), "dispatch window")
+
+
+def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
+                       dev: torch.device, cand_cap: int, visit,
+                       prog: _Progress, *, skip_units: int = 0,
+                       extra_steps: int = 0,
+                       index_cache: Optional[Dict] = None, reads: int = 0,
+                       extra_reserved: int = 0,
+                       streaming: bool = False) -> Dict[str, object]:
+    """The outer loop: for each usable text and each of its index shards,
+    call visit(fi, text, index, bsearch_steps). The first skip_units
+    (file, shard) units are skipped entirely (checkpoint resume) — their
+    index builds never run. Returns the loop's account of itself.
+
+    Every text is planned against ALL resident texts' bytes plus
+    extra_reserved (resident reads, the step's workspace). visit returns
+    an event recorded after its last dispatch (None on the CPU); at most 2
+    units are kept in flight, and 1 under a serial_build plan, which also
+    drops the previous unit's lists BEFORE the next build so that the peak
+    is one build and not lists plus a build.
+
+    index_cache: a SINGLE-unit run parks its built index there so the
+    overflow rerun (driver recursion) reuses it instead of re-sorting.
+    Multi-unit runs never cache: extra shards held alive through the pass
+    loop are what the plan did not budget for."""
     usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
               if _text_usable(cfg, tf)]
+    reserved = sum(_text_bytes(t) for _, t in usable) + extra_reserved
+    per_text = []
     for fi, text in usable:
         num_windows = text.n - cfg.seedl + 1
-        ck = (fi, 0, num_windows, cfg.seedl)
-        index = index_cache.get(ck)
-        if index is None:
-            # bucket-width hint: the FULL read-set size, so overflow
-            # reruns build (and reuse) the same table as the first pass
-            bbits = pick_bucket_bits(cfg.seedl, num_windows, num_reads,
-                                     cap=BUCKET_BITS_CAP)
-            with prog.phase("index_build"):
-                index = build_index(text, cfg.seedl, start=0,
-                                    num_windows=num_windows,
-                                    bucket_bits=bbits)
-            if len(usable) == 1:
-                index_cache[ck] = index
-        steps = _bsearch_steps_static(num_windows, cand_cap,
-                                      index.bucket_bits)
-        prog.event(f"file {fi}: index dispatched ({num_windows} windows, "
-                   f"bsearch={steps}, bbits={index.bucket_bits})")
-        yield fi, text, index, steps
+        splan = _plan_shards(cfg, text, dev, reserved_bytes=reserved,
+                             streaming=streaming, reads=reads)
+        per_text.append((fi, text, _shard_bounds(num_windows, splan.shards),
+                         splan))
+    total_units = sum(len(b) for _, _, b, _ in per_text)
+    account = {"units": total_units, "units_skipped": 0,
+               "units_dispatched": 0, "reserved_bytes": int(reserved),
+               "plans": [dataclasses.asdict(sp) for _, _, _, sp in per_text]}
+    unit = 0
+    inflight: List = []
+    index = None
+    for fi, text, bounds, splan in per_text:
+        for si, (s, e) in enumerate(bounds):
+            unit += 1
+            if unit <= skip_units:
+                account["units_skipped"] += 1
+                continue
+            depth = 1 if splan.serial_build else 2
+            while len(inflight) >= depth:
+                _wait_event(cfg, inflight.pop(0), "index unit in flight")
+            if splan.serial_build:
+                index = None
+            ck = (fi, s, e, cfg.seedl)
+            cached = index_cache.get(ck) if index_cache is not None else None
+            if cached is not None:
+                index = cached
+            else:
+                # bucket-width hint: the FULL read-set size, so overflow
+                # reruns build (and reuse) the same table as the first pass
+                bbits = pick_bucket_bits(cfg.seedl, e - s, reads,
+                                         cap=splan.bucket_bits_cap)
+                with prog.phase("index_build"):
+                    index = build_index(text, cfg.seedl, start=s,
+                                        num_windows=e - s, bucket_bits=bbits)
+                if index_cache is not None and total_units == 1:
+                    index_cache[ck] = index
+            steps = _bsearch_steps_static(e - s, cand_cap, index.bucket_bits,
+                                          extra_steps)
+            prog.event(f"file {fi}: index shard {si + 1}/{len(bounds)} "
+                       f"dispatched ({e - s} windows, bsearch={steps}, "
+                       f"bbits={index.bucket_bits})")
+            with prog.phase("match"):
+                handle = visit(fi, text, index, steps)
+            account["units_dispatched"] += 1
+            if handle is not None:
+                inflight.append(handle)
+    return account
+
+
+def _loop_metrics(account: Dict[str, object],
+                  source: pipeline.BatchSource) -> Dict[str, object]:
+    """What the unit loop and the batch source did, for the result's
+    metrics: units (planned, skipped on resume, dispatched), the shard
+    plans, the bytes the planner reserved, and the source's mode."""
+    return dict(account, source_resident=source.resident,
+                resident_read_bytes=source.resident_device_bytes,
+                streamed_batches=source.streamed_batches)
+
+
+_STATE_FIELDS = MatchState._fields
+
+
+def _check_step_scores(surv, what: str) -> None:
+    """-debug 1: a NaN score on a valid lane raises at the step that made
+    it (one device sync per step, like real_tpu's jax_debug_nans)."""
+    if bool((surv.valid & torch.isnan(surv.score)).any()):
+        raise FloatingPointError(f"NaN score on a valid lane in {what}")
+
+
+def _require(ok, what: str) -> None:
+    if not bool(ok):
+        raise AssertionError(what)
+
+
+def validate_result(cfg: RealConfig, result: "MatchResult", texts) -> None:
+    """Invariants of a finished matchUnique result (-debug 1); raises
+    AssertionError on the first one broken."""
+    st = result.st
+    _require(((st >= 0) & (st <= 4)).all(), "state out of range")
+    matched = (st == 1) | (st == 2)
+    _require((result.errs[matched] <= cfg.totalkmax).all(),
+             "matched read exceeds totalkmax")
+    _require((result.pos[matched] >= 0).all(), "negative match position")
+    for fi in np.unique(result.fileid[matched]):
+        sel = matched & (result.fileid == fi)
+        _require((result.pos[sel] < texts[int(fi)].packed.n).all(),
+                 "position beyond text")
+    if cfg.scores:
+        _require(np.isfinite(result.score[matched]).all(),
+                 "non-finite score on matched read")
+
+
+def validate_hits(cfg: RealConfig, cols) -> None:
+    """Invariants of finished matchAll hit columns (-debug 1)."""
+    _pid, k, pos, _fid, _frag, score, _inv = cols
+    _require((k <= cfg.totalkmax).all(), "hit exceeds totalkmax")
+    _require((pos >= 0).all(), "negative hit position")
+    if cfg.scores:
+        _require(np.isfinite(score).all(), "non-finite hit score")
 
 
 def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
@@ -280,23 +506,71 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
     overflow_dev = {bi: torch.zeros(p.rows, dtype=torch.bool, device=dev)
                     for bi, p in enumerate(plans)}
 
-    for fi, text, index, steps in _text_units(cfg, texts, numpat, cand_cap,
-                                              prog, _index_cache):
-        with prog.phase("match"):
-            for bi, b in enumerate(source):
-                states[bi], surv = match_step(
-                    index.sig, index.pos, index.bb,
-                    text.words, text.nbits, text.ncum, text.frag_offsets,
-                    b.codes, b.quals, b.valid,
-                    states[bi], fi, np.float32(cfg.filter_value(b.patl)),
-                    bsearch_steps=steps, text_has_n=text.has_n, **kw)
-                overflow_dev[bi] |= surv.overflow
+    # checkpoint/resume: per-batch MatchState + overflow + completed-unit
+    # cursor; only the top-level pass checkpoints (escalation reruns are
+    # cheap re-derivations)
+    ck = None
+    skip_units = 0
+    unit_done = [0]
+    if cfg.checkpoint and _depth == 0 and patid_filter is None:
+        ck = ckpt_mod.Checkpoint(cfg.checkpoint, ckpt_mod.fingerprint(
+            cfg, texts, numpat, len(plans), cand_cap, survivor_cap))
+        data = ck.load()
+        if data:
+            skip_units = unit_done[0] = data["units_done"]
+            for bi in range(len(plans)):
+                states[bi] = MatchState(**{
+                    f: torch.from_numpy(data["states"][bi][f]).to(dev)
+                    for f in _STATE_FIELDS})
+                overflow_dev[bi] = torch.from_numpy(
+                    data["overflow"][bi]).to(dev)
+            prog.event(f"resumed from checkpoint: {skip_units} units done")
+
+    def fetch_states(what: str):
+        """Every batch's state and overflow flags as numpy arrays; the
+        queued device work completes inside this fetch."""
+        with watchdog(cfg.watchdog_s, what):
+            return [[t.cpu().numpy() for t in states[bi]]
+                    + [overflow_dev[bi].cpu().numpy()]
+                    for bi in range(len(plans))]
+
+    def checkpoint_unit():
+        unit_done[0] += 1
+        if ck is None or unit_done[0] % max(cfg.checkpoint_every, 1):
+            return
+        host = fetch_states("checkpoint state fetch")
+        ck.save(unit_done[0],
+                [dict(zip(_STATE_FIELDS, h[:-1])) for h in host],
+                [h[-1] for h in host])
+        prog.event(f"checkpoint saved ({unit_done[0]} units)")
+
+    win = _DispatchWindow(cfg, dev, enabled=not source.resident)
+
+    def visit(fi, text, index, steps):
+        for bi, b in enumerate(source):
+            states[bi], surv = match_step(
+                index.sig, index.pos, index.bb,
+                text.words, text.nbits, text.ncum, text.frag_offsets,
+                b.codes, b.quals, b.valid,
+                states[bi], fi, np.float32(cfg.filter_value(b.patl)),
+                bsearch_steps=steps, text_has_n=text.has_n, **kw)
+            overflow_dev[bi] |= surv.overflow
+            if cfg.debug_checks and cfg.scores:
+                _check_step_scores(surv, f"file {fi}, batch {bi}")
+            win.push()
+        checkpoint_unit()
+        return _record_event(dev)
+
+    account = _foreach_shard_seq(
+        cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
+        index_cache=_index_cache, reads=numpat,
+        extra_reserved=source.resident_device_bytes
+        + _step_workspace_bytes(plans, survivor_cap),
+        streaming=not source.resident)
 
     # the match loop only dispatches; its device work completes here
     with prog.phase("drain"):
-        host = [[t.cpu().numpy() for t in states[bi]]
-                + [overflow_dev[bi].cpu().numpy()]
-                for bi in range(len(plans))]
+        host = fetch_states("matchUnique result drain")
     overflow = np.zeros(numpat, bool)
     with prog.phase("collect"):
         for bi, p in enumerate(plans):
@@ -312,7 +586,8 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
 
     over_ids = np.flatnonzero(overflow)
     result.metrics = {"phase_s": dict(prog.phase_s),
-                      "overflow_rerun_reads": int(len(over_ids))}
+                      "overflow_rerun_reads": int(len(over_ids)),
+                      **_loop_metrics(account, source)}
     if len(over_ids):
         if _depth >= 4:
             raise RuntimeError(
@@ -328,6 +603,10 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
             getattr(result, f)[over_ids] = getattr(sub, f)[over_ids]
         _add_rerun_phases(result.metrics["phase_s"], sub.metrics["phase_s"])
     _print_phases(cfg, result.metrics["phase_s"])
+    if ck is not None:
+        ck.delete()
+    if cfg.debug_checks and _depth == 0:
+        validate_result(cfg, result, texts)
     return result
 
 
@@ -492,10 +771,12 @@ class _HitFetch:
         else:
             self.host = flat
 
-    def numpy(self) -> CompactHits:
-        """The step's CompactHits as numpy arrays (waits for the copy)."""
+    def numpy(self, watchdog_s: float = 0) -> CompactHits:
+        """The step's CompactHits as numpy arrays (waits for the copy,
+        under the watchdog)."""
         if self.event is not None:
-            self.event.synchronize()
+            with watchdog(watchdog_s, "matchAll hit drain"):
+                self.event.synchronize()
         a, h = self.host.numpy(), self.h
         return CompactHits(pos=a[:h], m1=a[h:2 * h], m2=a[2 * h:3 * h],
                            score=a[3 * h:4 * h].view(np.float32),
@@ -534,6 +815,17 @@ class _HitAccumulator:
             (ch.m2[:c][keep] >> 1).astype(np.int64),
             ch.score[:c][keep].astype(np.float32),
             (ch.m2[:c][keep] & 1).astype(bool)))
+
+    def compact(self) -> tuple:
+        """The accumulated columns concatenated in place (no sort, no
+        dedup): the checkpoint's payload; the accumulator stays
+        equivalent."""
+        if not self.cols:
+            return tuple(np.zeros(0, dt) for dt in HIT_DTYPES)
+        cols = tuple(np.concatenate([c[i] for c in self.cols])
+                     for i in range(7))
+        self.cols = [cols]
+        return cols
 
     def finalize(self, use_native: bool = True) -> tuple:
         """Sorted + deduped hit columns (pid, k, pos, fileid, frag,
@@ -588,21 +880,62 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     def drain(to_len: int) -> None:
         while len(pending) > to_len:
             fetch, patids, fi = pending.pop(0)
-            acc.add_compact(fetch.numpy(), patids, fi, len(patids), overflow)
+            acc.add_compact(fetch.numpy(cfg.watchdog_s), patids, fi,
+                            len(patids), overflow)
 
-    for fi, text, index, steps in _text_units(cfg, texts, rs.num_reads,
-                                              cand_cap, prog, _index_cache):
-        with prog.phase("match"):
-            for b in source:
-                _, ch = match_step(
-                    index.sig, index.pos, index.bb,
-                    text.words, text.nbits, text.ncum, text.frag_offsets,
-                    b.codes, b.quals, b.valid,
-                    None, fi, np.float32(cfg.filter_value(b.patl)),
-                    matchall=True, bsearch_steps=steps,
-                    text_has_n=text.has_n, **kw)
-                pending.append((_HitFetch(ch), b.patids, fi))
-                drain(_PENDING_MAX)
+    # checkpoint/resume: accumulated hit columns + overflow + completed-
+    # unit cursor (hits of completed units are independent of later units
+    # — shards are disjoint window ranges)
+    ck = None
+    skip_units = 0
+    unit_done = [0]
+    if cfg.checkpoint and _depth == 0 and patid_filter is None:
+        ck = ckpt_mod.AllCheckpoint(
+            cfg.checkpoint, "all-" + ckpt_mod.fingerprint(
+                cfg, texts, rs.num_reads, len(source.plans), cand_cap,
+                survivor_cap))
+        data = ck.load()
+        if data:
+            skip_units = unit_done[0] = data["units_done"]
+            overflow |= data["overflow"]
+            acc.cols.append(data["cols"])
+            prog.event(f"resumed from checkpoint: {skip_units} units done")
+
+    def checkpoint_unit():
+        unit_done[0] += 1
+        if ck is None or unit_done[0] % max(cfg.checkpoint_every, 1):
+            return
+        drain(0)
+        ck.save(unit_done[0], overflow, acc.compact())
+        prog.event(f"checkpoint saved ({unit_done[0]} units)")
+
+    win = _DispatchWindow(cfg, dev, enabled=not source.resident)
+
+    def visit(fi, text, index, steps):
+        for bi, b in enumerate(source):
+            _, ch = match_step(
+                index.sig, index.pos, index.bb,
+                text.words, text.nbits, text.ncum, text.frag_offsets,
+                b.codes, b.quals, b.valid,
+                None, fi, np.float32(cfg.filter_value(b.patl)),
+                matchall=True, bsearch_steps=steps,
+                text_has_n=text.has_n, **kw)
+            if cfg.debug_checks and cfg.scores:
+                if bool(torch.isnan(ch.score[:int(ch.count)]).any()):
+                    raise FloatingPointError(
+                        f"NaN score on a hit in file {fi}, batch {bi}")
+            pending.append((_HitFetch(ch), b.patids, fi))
+            drain(_PENDING_MAX)
+            win.push()
+        checkpoint_unit()
+        return _record_event(dev)
+
+    account = _foreach_shard_seq(
+        cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
+        index_cache=_index_cache, reads=rs.num_reads,
+        extra_reserved=source.resident_device_bytes
+        + _step_workspace_bytes(source.plans, survivor_cap),
+        streaming=not source.resident)
 
     with prog.phase("drain"):
         drain(0)
@@ -612,7 +945,8 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     over_ids = np.flatnonzero(overflow)
     metrics = {"phase_s": dict(prog.phase_s),
                "overflow_rerun_reads": int(len(over_ids)),
-               "batch_hit_overflow_steps": acc.batch_overflow_steps}
+               "batch_hit_overflow_steps": acc.batch_overflow_steps,
+               **_loop_metrics(account, source)}
     if len(over_ids):
         if _depth >= 4:
             raise RuntimeError(
@@ -630,5 +964,9 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
             cfg.native_host)
         _add_rerun_phases(metrics["phase_s"], sub.metrics["phase_s"])
     _print_phases(cfg, metrics["phase_s"])
+    if ck is not None:
+        ck.delete()
+    if cfg.debug_checks and _depth == 0:
+        validate_hits(cfg, cols)
     result = MatchAllResult(*cols, metrics=metrics)
     return result if as_arrays else result.by_read()

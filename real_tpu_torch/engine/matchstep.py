@@ -19,7 +19,11 @@ to its mismatch counts, and the generic window gather serves the bucket
 bounds of the bisection path.
 
 32-bit values are int64 tensors holding the unsigned value; 32-bit tables
-are int32 bit patterns (text/packed.py).
+are int32 bit patterns (text/packed.py). Wide signatures (seedl 36..64) are
+int64 bit patterns in the index and in the probes alike, compared through
+index/signatures.unsigned_order wherever real_tpu compares its (hi, lo)
+planes: the bucket key, both bisections, the lane K-1 overflow tests and
+the re-check after bisection.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import numpy as np
 import torch
 
 from real_tpu_torch.index.signatures import (NUM_LISTS, SigConfig,
-                                             read_segments, read_segments_rc)
+                                             read_segments, read_segments_rc,
+                                             unsigned_order)
 from real_tpu_torch.ops.gather import (gather_word_windows,
                                        probe_candidates, verify_windows)
 from real_tpu_torch.scoring.scoring import ScoreTables
@@ -78,9 +83,10 @@ class Survivors(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def compute_probes(codes: torch.Tensor, seedl: int) -> torch.Tensor:
-    """Probe signatures [B, 12] (unsigned values in int64); probes 0..5 are
-    straight lists s0..s5, probes 6..11 reverse-complement — the probe
-    order of UniqueMatcher::match (matchUniqueImplementation.cpp:416-488)."""
+    """Probe signatures [B, 12] (int64: unsigned values for seedl <= 32,
+    64-bit patterns for wide seeds); probes 0..5 are straight lists
+    s0..s5, probes 6..11 reverse-complement — the probe order of
+    UniqueMatcher::match (matchUniqueImplementation.cpp:416-488)."""
     sc = SigConfig(seedl)
     m = read_segments(codes[:, :seedl], seedl)
     im = read_segments_rc(codes, seedl)   # segments of RC(read)[0:seedl]
@@ -112,8 +118,20 @@ def pack_read_words(codes: torch.Tensor):
 # candidate generation + verification
 # ---------------------------------------------------------------------------
 
-def _bisected_ranges(index_sig, index_bb, probe_sig, bucket_shift: int,
-                     steps: int):
+def _stored_sigs(index_sig: torch.Tensor, idx: torch.Tensor,
+                 wide: bool) -> torch.Tensor:
+    """index_sig[idx] in the probes' form: the unsigned value of a narrow
+    int32 pattern, the int64 pattern itself when wide."""
+    return index_sig[idx] if wide else u32(index_sig[idx])
+
+
+def _ordered(sig: torch.Tensor, wide: bool) -> torch.Tensor:
+    """Keys whose `<` is the signatures' unsigned order."""
+    return unsigned_order(sig) if wide else sig
+
+
+def _bisected_ranges(index_sig, index_bb, probe_sig, sc: SigConfig,
+                     bucket_bits: int, steps: int):
     """(begin, count) int64 [B, 12] of each probe's exact equal range: the
     bucket range refined by two bisections of `steps` steps. An unconverged
     bisection returns the conservative side (see real_tpu's
@@ -132,7 +150,8 @@ def _bisected_ranges(index_sig, index_bb, probe_sig, bucket_shift: int,
         return a.reshape(NUM_LISTS, 2, B).permute(2, 1, 0).reshape(B, -1)
 
     by_list = to_list_major(probe_sig)
-    h = by_list >> bucket_shift
+    h = sc.bucket_key_bits(by_list, bucket_bits)
+    by_list = _ordered(by_list, sc.wide)
     lo, hi = gather_word_windows(
         index_bb, (h + (lists * nbuck)[:, None]).to(torch.int32), 2)
     lo, hi = lo.to(torch.int64), hi.to(torch.int64)
@@ -146,7 +165,9 @@ def _bisected_ranges(index_sig, index_bb, probe_sig, bucket_shift: int,
         l, h2 = lo, hi
         for _ in range(steps):
             mid = (l + h2) >> 1
-            v = u32(index_sig[torch.clamp(mid, max=M - 1) + list_base])
+            v = _ordered(_stored_sigs(
+                index_sig, torch.clamp(mid, max=M - 1) + list_base,
+                sc.wide), sc.wide)
             live = l < h2
             go_right = ((v <= by_list) if gt else (v < by_list)) & live
             l, h2 = (torch.where(go_right, mid + 1, l),
@@ -182,11 +203,13 @@ def find_survivors(
     # ---- phase 1: candidate ranges from the bucket table -------------------
     # bucket width is read back from the table: 2^bits + 1 entries per list
     nbuck = index_bb.shape[0] // NUM_LISTS
-    bucket_shift = sc.bucket_shift_bits((nbuck - 1).bit_length() - 1)
+    bucket_bits = (nbuck - 1).bit_length() - 1
+    bucket_shift = sc.bucket_shift_bits(bucket_bits)
+    probe_ord = _ordered(probe_sig, sc.wide)
 
     if bsearch_steps:
         begin_pm, count_pm = _bisected_ranges(
-            index_sig, index_bb, probe_sig, bucket_shift, bsearch_steps)
+            index_sig, index_bb, probe_sig, sc, bucket_bits, bsearch_steps)
         overflow = (count_pm > K).any(dim=1)
         lane = torch.arange(K, dtype=torch.int64, device=dev)
         cand_valid = (lane[None, None, :] < count_pm[..., None]) \
@@ -202,7 +225,9 @@ def find_survivors(
             index_sig, index_bb, probe_sig, read_valid, bucket_shift, K1)
         if K1 == K:
             cand_valid = cand1
-            last_le = u32(lane_sig[..., K - 1]) <= probe_sig
+            last = lane_sig[..., K - 1]
+            last_le = _ordered(last if sc.wide else u32(last),
+                               sc.wide) <= probe_ord
             overflow = ((count_pm > K) & last_le).any(dim=1)
         else:
             deep = count_pm > K1                          # [B, 12]
@@ -226,9 +251,10 @@ def find_survivors(
             lane2 = K1 + torch.arange(K - K1, dtype=torch.int64, device=dev)
             didx = torch.clamp(pbegin[:, None] + lane2, 0, M - 1) \
                 + plbase[:, None]                         # [D, K-K1]
-            dsig = u32(index_sig[didx])
+            dsig = _stored_sigs(index_sig, didx, sc.wide)
             eq2 = (dsig == psig[:, None]) & got_slot[:, None]
-            dlast_le = dsig[:, K - K1 - 1] <= psig
+            dlast_le = _ordered(dsig[:, K - K1 - 1], sc.wide) \
+                <= _ordered(psig, sc.wide)
             eq2 &= lane2[None, :] < pcount[:, None]
 
             def scatter(rows_shape, values):
@@ -268,7 +294,8 @@ def find_survivors(
     flat = s_list * M + torch.clamp(s_idx, 0, M - 1)
     cand_rpos = index_pos[flat].to(torch.int64)          # [B, S]
     if bsearch_steps:
-        s_valid &= u32(index_sig[flat]) == torch.gather(probe_sig, 1, s_probe)
+        s_valid &= _stored_sigs(index_sig, flat, sc.wide) \
+            == torch.gather(probe_sig, 1, s_probe)
 
     # reverse-complement hits place the indexed seed at the END of the
     # window: pos = rpos - restlen (RestMatch.hpp:84-89)

@@ -134,6 +134,61 @@ def parse_reads(path: str, quality_offset: int = 0,
     return parse_fasta_reads_bytes(buf)
 
 
+def split_records(nrec: int, rank: int, nranks: int):
+    """[lo, hi) record range for one rank: contiguous, 16-aligned except
+    the last rank (batch padding stays shape-identical across hosts)."""
+    per = -(-nrec // nranks)
+    per = -(-per // 16) * 16
+    lo = min(rank * per, nrec)
+    hi = min(lo + per, nrec)
+    return lo, hi
+
+
+def parse_reads_sliced(path: str, rank: int, nranks: int,
+                       quality_offset: int = 0, use_native: bool = True):
+    """Parse only THIS rank's record slice of a read file (input sharding
+    for several processes). The record boundary scan is one vectorized
+    newline pass; the per-character mapping runs only on the rank's
+    sub-buffer, through the native parsers unless use_native is off.
+
+    The FASTQ quality offset is autodetected from the FILE START (the
+    reference reads it once for the whole file, FastQReader.hpp:221-239),
+    so all ranks agree. Returns (ReadSet, lo_patid, total_records)."""
+    with open(path, "rb") as f:
+        buf = np.frombuffer(f.read(), dtype=np.uint8)
+    fastq = bool(buf.size) and _first_nonspace(buf) == ord("@")
+    starts, ends = _line_table(buf)
+    if fastq:
+        nrec = len(starts) // 4
+        rec_starts = starts[np.arange(nrec) * 4]
+        if quality_offset == 0:
+            for i in range(3, nrec * 4, 4):
+                quality_offset = autodetect_quality_offset(
+                    buf[starts[i]:ends[i]])
+                if quality_offset:
+                    break
+            if quality_offset == 0:
+                raise RuntimeError(
+                    "Unable to automatically detect FastQ quality format.")
+    else:
+        rec_starts = starts[buf[starts] == ord(">")]
+        nrec = len(rec_starts)
+    lo, hi = split_records(nrec, rank, nranks)
+    sub_lo = int(rec_starts[lo]) if lo < nrec else len(buf)
+    sub_hi = int(rec_starts[hi]) if hi < nrec else len(buf)
+    sub = buf[sub_lo:sub_hi]
+    if use_native and sub.size:
+        from real_tpu_torch.io import native_io
+        if not fastq:
+            return native_io.parse_fasta_reads_native(sub), lo, nrec
+        rs = native_io.parse_fastq_native(sub, quality_offset)
+        if rs is not None:
+            return rs, lo, nrec
+    rs = (parse_fastq_bytes(sub, quality_offset) if fastq
+          else parse_fasta_reads_bytes(sub))
+    return rs, lo, nrec
+
+
 def _first_nonspace(buf: np.ndarray) -> int:
     for i in range(0, len(buf), 4096):
         chunk = buf[i:i + 4096]

@@ -10,7 +10,8 @@ that consumes it (csrc/gather_windows.cu, three entry points):
   gather_word_windows  w consecutive words at n starts, the generic gather
                        (the bisection path's bucket bounds)
   probe_candidates     bucket bounds -> candidate range -> tier-1
-                       signatures -> lane validity, per probe
+                       signatures -> lane validity, per probe; one entry
+                       for 32-bit signatures, one for wide (64-bit) ones
   verify_windows       text words -> funnel shift -> XOR with the read ->
                        masked mismatch counts, per survivor lane
 
@@ -21,6 +22,10 @@ apply to this card.
 
 32-bit tables are int32 bit patterns; probe signatures, read words and
 positions are the int64 tensors the match step computes (text/packed.py).
+A wide signature list (seedl 36..64) is an int64 table of 64-bit patterns
+and its probes are int64 patterns too (index/signatures.py); real_tpu
+fetches those lanes with jnp.take because its Pallas kernel is 32-bit
+only, here the wide lookup has its own kernel entry.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from real_tpu_torch.index.signatures import NUM_LISTS
+from real_tpu_torch.index.signatures import (NUM_LISTS,
+                                             logical_shift_right)
 from real_tpu_torch.ops import cuda_build
 from real_tpu_torch.text.packed import (MASK32, i32_bits,
                                         pair_mismatch_count, u32)
@@ -45,6 +51,8 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = {
     "gather_windows_i32": [_P, _I64, _P, _I64, _INT, _P, _P],
     "probe_candidates_i32": [_P, _I64, _P, _I64, _P, _P, _I64, _INT, _INT,
+                             _P, _P, _P, _P, _P],
+    "probe_candidates_i64": [_P, _I64, _P, _I64, _P, _P, _I64, _INT, _INT,
                              _P, _P, _P, _P, _P],
     "verify_windows_i32": [_P, _I64, _P, _P, _P, _P, _I64, _INT, _INT,
                            _P, _P, _P, _P, _P, _P, _P],
@@ -90,9 +98,10 @@ def _all_on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
-def _check_table(name: str, what: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: {what} must be int32, got {t.dtype}")
+def _check_table(name: str, what: str, t: torch.Tensor,
+                 dtype=torch.int32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
     if t.dim() != 1 or not t.is_contiguous() or t.numel() < 1:
         raise ValueError(f"{name}: {what} must be a non-empty contiguous "
                          "1-D table")
@@ -158,12 +167,16 @@ def probe_candidates_ref(index_sig: torch.Tensor, index_bb: torch.Tensor,
                          bucket_shift: int, k1: int):
     """Plain version of probe_candidates: real_tpu's find_survivors from
     the bucket lookup to the tier-1 lane validity (bsearch_steps == 0),
-    indexed by probe instead of by list."""
+    indexed by probe instead of by list. An int64 index_sig is a wide
+    list: 64-bit patterns, a logical shift for the bucket key, lanes
+    returned as int64 (real_tpu's two jnp.take planes joined)."""
+    wide = index_sig.dtype == torch.int64
     M = index_sig.shape[0] // NUM_LISTS
     nbuck = index_bb.shape[0] // NUM_LISTS
     lists = torch.arange(NUM_PROBES, dtype=torch.int64,
                          device=probe_sig.device) % NUM_LISTS     # [12]
-    h = probe_sig >> bucket_shift
+    h = logical_shift_right(probe_sig, bucket_shift) if wide \
+        else probe_sig >> bucket_shift
     lo, hi = gather_word_windows_ref(
         index_bb, (h + lists * nbuck).to(torch.int32), 2)
     lo, hi = lo.to(torch.int64), hi.to(torch.int64)
@@ -179,7 +192,7 @@ def probe_candidates_ref(index_sig: torch.Tensor, index_bb: torch.Tensor,
     lane_sig = torch.stack(gather_word_windows_ref(
         index_sig, start.to(torch.int32), k1), dim=-1)            # [B, 12, k1]
     lane = torch.arange(k1, dtype=torch.int64, device=probe_sig.device)
-    eq = u32(lane_sig) == probe_sig[..., None]
+    eq = (lane_sig if wide else u32(lane_sig)) == probe_sig[..., None]
     in_range = lane[None, None, :] < count[..., None]
     cand = in_range & eq & read_valid[:, None, None]
     return begin.to(torch.int32), count.to(torch.int32), lane_sig, cand
@@ -191,17 +204,20 @@ def probe_candidates(index_sig: torch.Tensor, index_bb: torch.Tensor,
     """Candidate ranges and tier-1 lanes of a batch's probes against one
     index shard, from the bucket table alone (no bisection).
 
-    index_sig int32 [6*M] and index_bb int32 [6*nbuck] are the flat sorted
-    lists and bucket tables; probe_sig int64 [B, 12] holds the unsigned
-    probe signatures (probe = strand*6 + list); read_valid bool [B];
+    index_sig [6*M] and index_bb int32 [6*nbuck] are the flat sorted
+    lists and bucket tables; probe_sig int64 [B, 12] holds the probe
+    signatures (probe = strand*6 + list); read_valid bool [B];
     bucket_shift = signature bits below the bucket key; 1 <= k1 <= 4.
+    Narrow lists are int32 bit patterns with unsigned probe values and
+    0 <= bucket_shift <= 32; wide lists (seedl 36..64) are int64 bit
+    patterns with probes of the same form and 1 <= bucket_shift <= 63.
 
     Returns, probe-major: begin int32 [B, 12] (first list entry of the
     probe's bucket), count int32 [B, 12] (entries to the bucket's end,
-    clamped to the list's real entries; may be <= 0), lane_sig int32
-    [B, 12, k1] (bit patterns of the k1 list signatures from the clipped
-    begin, zero past the table end) and cand bool [B, 12, k1] = lane <
-    count & lane signature == probe & read_valid.
+    clamped to the list's real entries; may be <= 0), lane_sig [B, 12, k1]
+    of the list's dtype (bit patterns of the k1 list signatures from the
+    clipped begin, zero past the table end) and cand bool [B, 12, k1] =
+    lane < count & lane signature == probe & read_valid.
 
     CPU tensors take probe_candidates_ref; CUDA tensors launch the kernel,
     and anything else raises."""
@@ -209,7 +225,9 @@ def probe_candidates(index_sig: torch.Tensor, index_bb: torch.Tensor,
     if _all_on_cpu(name, index_sig, index_bb, probe_sig, read_valid):
         return probe_candidates_ref(index_sig, index_bb, probe_sig,
                                     read_valid, bucket_shift, k1)
-    _check_table(name, "index_sig", index_sig)
+    wide = index_sig.dtype == torch.int64
+    _check_table(name, "index_sig", index_sig,
+                 torch.int64 if wide else torch.int32)
     _check_table(name, "index_bb", index_bb)
     if index_sig.numel() % NUM_LISTS or index_bb.numel() % NUM_LISTS \
             or index_sig.numel() >= 2**31:
@@ -218,23 +236,27 @@ def probe_candidates(index_sig: torch.Tensor, index_bb: torch.Tensor,
     B = read_valid.shape[0]
     _check(name, "probe_sig", probe_sig, torch.int64, (B, NUM_PROBES))
     _check(name, "read_valid", read_valid, torch.bool, (B,))
-    if not 1 <= k1 <= 4 or not 0 <= bucket_shift <= 32:
-        raise ValueError(f"{name}: k1={k1} must be in 1..4 and "
-                         f"bucket_shift={bucket_shift} in 0..32")
+    lo_shift, hi_shift = (1, 63) if wide else (0, 32)
+    if not 1 <= k1 <= 4 or not lo_shift <= bucket_shift <= hi_shift:
+        raise ValueError(f"{name}: k1={k1} must be in 1..4 and bucket_shift="
+                         f"{bucket_shift} in {lo_shift}..{hi_shift}")
     probe_sig, read_valid = probe_sig.contiguous(), read_valid.contiguous()
     dev = index_sig.device
     begin = torch.empty((B, NUM_PROBES), dtype=torch.int32, device=dev)
     count = torch.empty((B, NUM_PROBES), dtype=torch.int32, device=dev)
-    lane_sig = torch.empty((B, NUM_PROBES, k1), dtype=torch.int32, device=dev)
+    lane_sig = torch.empty((B, NUM_PROBES, k1), dtype=index_sig.dtype,
+                           device=dev)
     cand = torch.empty((B, NUM_PROBES, k1), dtype=torch.bool, device=dev)
     if B:
-        _launch("probe_candidates_i32", dev, index_sig.data_ptr(),
+        _launch("probe_candidates_i64" if wide else "probe_candidates_i32",
+                dev, index_sig.data_ptr(),
                 index_sig.numel() // NUM_LISTS, index_bb.data_ptr(),
                 index_bb.numel() // NUM_LISTS, probe_sig.data_ptr(),
                 read_valid.data_ptr(), B * NUM_PROBES, bucket_shift, k1,
                 begin.data_ptr(), count.data_ptr(), lane_sig.data_ptr(),
                 cand.data_ptr())
         probe_candidates.launches += 1
+        probe_candidates.launches_wide += int(wide)
     return begin, count, lane_sig, cand
 
 
@@ -359,10 +381,12 @@ def verify_windows(words: torch.Tensor, pos: torch.Tensor,
 
 # kernel launches since the last reset, one count per entry point
 # (chip_smoke.py proves the main path went through each kernel with these);
-# launches_by_w splits the generic gather's by window width
+# launches_by_w splits the generic gather's by window width, launches_wide
+# counts those of probe_candidates' launches that took the 64-bit entry
 gather_word_windows.launches = 0
 gather_word_windows.launches_by_w = {}
 probe_candidates.launches = 0
+probe_candidates.launches_wide = 0
 verify_windows.launches = 0
 
 
@@ -370,4 +394,5 @@ def reset_launch_counts() -> None:
     gather_word_windows.launches = 0
     gather_word_windows.launches_by_w = {}
     probe_candidates.launches = 0
+    probe_candidates.launches_wide = 0
     verify_windows.launches = 0

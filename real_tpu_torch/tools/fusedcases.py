@@ -12,7 +12,8 @@ import torch
 
 def tensors(arrays, device):
     """numpy arrays -> tensors on `device`; uint32 becomes the int32 bit
-    pattern, and 2-D tables are flattened list after list."""
+    pattern, and 2-D int32 tables are flattened list after list (a wide
+    int64 list is flattened by the caller: probes are int64 and 2-D too)."""
     out = []
     for a in arrays:
         if a.dtype == np.uint32:
@@ -52,6 +53,45 @@ def edge_probes(rng, sig, nb):
     stored = sig[np.arange(12) % 6, rng.integers(0, sig.shape[1], (nb, 12))]
     probe[take] = stored[take]
     probe[0] = 0xFFFFFFFF
+    probe[1] = 0
+    valid = rng.random(nb) < 0.8
+    return probe, valid
+
+
+def edge_tables_wide(rng, seedl, M=500, bits=6):
+    """edge_tables for wide signatures of `seedl` bits: int64 bit patterns
+    [6, M] in unsigned order (at seedl 64 half of them have the top bit
+    set, where signed and unsigned order differ), the all-ones sentinel at
+    the lists' ends, and the same out-of-range bucket bounds."""
+    nbuck = (1 << bits) + 1
+    sig = np.sort(rng.integers(0, 2**64, (6, M), dtype=np.uint64)
+                  >> np.uint64(64 - seedl), axis=1)
+    sig[:, -7:] = np.uint64(2**64 - 1)
+    bb = np.zeros((6, nbuck), np.int64)
+    bounds = np.arange(nbuck - 1, dtype=np.uint64) << np.uint64(seedl - bits)
+    for l in range(6):
+        bb[l, :-1] = np.minimum(np.searchsorted(sig[l], bounds), M - 7)
+        bb[l, -1] = M - 7
+    bb[0, 3:6] = [M - 1, M, M + 5]
+    bb[1, 10:13] = [-3, 40, 20]
+    bb[2, -2] = M - 1
+    bb[3, -1] = 3                      # a list with three real entries
+    bb[5, 20] = 2**31 - 1
+    return sig.view(np.int64), bb.astype(np.int32), seedl - bits
+
+
+def edge_probes_wide(rng, sig, nb, seedl):
+    """edge_probes over edge_tables_wide's lists (sig int64 [6, M]): half
+    the probes are stored signatures (sentinels among them), the others
+    random patterns of `seedl` bits; one read is all T (all ones over the
+    width: the sentinel itself at seedl 64), one all A."""
+    probe = (rng.integers(0, 2**64, (nb, 12), dtype=np.uint64)
+             >> np.uint64(64 - seedl)).view(np.int64)
+    take = rng.random((nb, 12)) < 0.5
+    stored = sig[np.arange(12) % 6,
+                 rng.integers(0, sig.shape[1] - 7, (nb, 12))]
+    probe[take] = stored[take]
+    probe[0] = np.uint64((1 << seedl) - 1).view(np.int64)
     probe[1] = 0
     valid = rng.random(nb) < 0.8
     return probe, valid

@@ -79,14 +79,31 @@ def test_cli_writes_the_same_file(tmp_path):
                                                use_mesh=False)
 
 
-@pytest.mark.parametrize("flags", [["-shards", "4"],
-                                   ["-l", "48"], ["-ckpt", "c.ckpt"],
+@pytest.mark.parametrize("flags", [["-exchange", "xdir"],
+                                   ["-exchange", "xdir", "-shards", "4"],
+                                   ["-trace", "tr", "-l", "48"],
                                    ["-trace", "tr"], ["-metrics", "m.json"],
-                                   ["-debug", "1"]])
+                                   ["-metrics", "m.json", "-debug", "1",
+                                    "-ckpt", "c.ckpt"]])
 def test_cli_flags_this_slice_lacks_raise(flags):
+    """-trace, -metrics and -exchange are not ported, alone or beside
+    flags that are."""
     with pytest.raises(NotImplementedError):
         t_main.parse_args(["-t", "g.fa", "-p", "r.fa", "-o", "o.txt",
                            *flags])
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["-shards", "4"], "index_shards", 4), (["-l", "48"], "seedl", 48),
+    (["-l", "64"], "seedl", 64), (["-ckpt", "c.ckpt"], "checkpoint", "c.ckpt"),
+    (["-ckpt_every", "3"], "checkpoint_every", 3),
+    (["-watchdog", "0"], "watchdog_s", 0), (["-debug", "1"], "debug_checks",
+                                            True),
+    (["-f", "0.5"], "fracmem", 0.5)])
+def test_cli_flags_of_this_slice_reach_the_config(flags, field, value):
+    cfg = t_main.parse_args(["-t", "g.fa", "-p", "r.fa", "-o", "o.txt",
+                             *flags])
+    assert getattr(cfg, field) == value
 
 
 @pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])

@@ -79,9 +79,14 @@ def test_build_index_equals_real_tpu(case):
 @pytest.mark.parametrize("windows", [100, 20000, 4_600_000, 46_000_000])
 @pytest.mark.parametrize("reads", [0, 300, 100_000])
 def test_host_plan_math_equal(windows, reads):
+    # the function is real_tpu's given real_tpu's cost constants (the
+    # port's defaults are the H100's: tools/planprobe.py)
     for cap in (25, 27):
-        assert (t_build.pick_bucket_bits(32, windows, reads, cap=cap)
+        assert (t_build.pick_bucket_bits(32, windows, reads, cap=cap,
+                                         gather_s=10e-9, entry_s=9e-9)
                 == j_build.pick_bucket_bits(32, windows, reads, cap=cap))
+        own = t_build.pick_bucket_bits(32, windows, reads, cap=cap)
+        assert 12 <= own <= min(cap, 32)
     for bits in (12, 15, 23):
         for k in (2, 8, 128):
             assert (t_driver._bsearch_steps_static(windows, k, bits)

@@ -101,6 +101,19 @@ NATIVE_MODULES = ["real_tpu_torch/native/__init__.py",
                   "real_tpu_torch/io/readstore.py"]
 
 
+PLANNER_MODULES = ["parallel/plan.py", "engine/checkpoint.py",
+                   "utils/watchdog.py", "io/pipeline.py"]
+
+
+@pytest.mark.parametrize("rel", PLANNER_MODULES)
+def test_planner_and_run_control_modules_are_walked(rel):
+    """The modules of the shard planner, the checkpoints and the watchdog
+    are among the imported modules and the checked sources."""
+    assert os.path.join(REPO, "real_tpu_torch", rel) in PORT_FILES
+    name = "real_tpu_torch." + rel[:-3].replace("/", ".")
+    assert name in _port_modules()
+
+
 @pytest.mark.parametrize("rel", NATIVE_MODULES)
 def test_native_host_modules_are_checked_sources(rel):
     """The modules of the native host pipeline are among the files whose

@@ -212,8 +212,13 @@ def test_records_equal_real_tpu(tmp_path, case):
     assert len(result.pid) > 200
     assert ours == _real_tpu_records(genome, reads, scores, caps)
     m = result.metrics
+    # the run's own metrics, and the unit loop's account of itself
     assert set(m) == {"phase_s", "overflow_rerun_reads",
-                      "batch_hit_overflow_steps"}
+                      "batch_hit_overflow_steps", "units", "units_skipped",
+                      "units_dispatched", "reserved_bytes", "plans",
+                      "source_resident", "resident_read_bytes",
+                      "streamed_batches"}
+    assert m["units"] == m["units_dispatched"] == 1 and m["source_resident"]
     if metric:
         assert m[metric] > 0 and m["overflow_rerun_reads"] > 0
     # the dict form holds the same records
