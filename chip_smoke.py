@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (real_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ranks N     # phase (i) alone, N ranks, one per card
 
 Drives the port's four paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates in its 32-bit
@@ -27,6 +28,15 @@ PyTorch version, and holds every entry of the native host library
                with wide seeds (-l 48, -l 64) on the first 262,144 reads
   gatherbench  the gather micro-benchmark (tools/gatherbench.py) at its
                default size and with a 110 MB table
+
+and then, outside every timed run above, the flags and modules around the
+main path: (f) chr21 (a) through the CLI under -trace and -metrics, (h)
+the matchUnique genome split over two .fa files of one -t directory, in
+both modes, and (i) the matchUnique path as two ranks sharing the card,
+with and without -exchange.
+
+With --ranks N it runs phases 1-2, the matchUnique data and phase (i)
+alone, as N ranks on N cards (one each); it needs N cards.
 
 Phases:
 
@@ -101,9 +111,27 @@ Phases:
                 on the first 262,144 reads: launches of the 64-bit
                 probe_candidates entry > 0, truth share, and CPU parity
                 (plain host versions) on the first 2,048 reads
- 10. gatherbench  the tool's JSON line at both table sizes; the kernel's
+ 10. flags    (f) chr21 (a) through the CLI with -R 0, -trace and
+                -metrics: records byte-identical to (a)'s; from the exported
+                Chrome trace, the union of the kernel, memcpy and memset
+                intervals over the traced window (the device busy share)
+                and the kernels by device time, which must include
+                probe_candidates and verify_windows; the metrics file's
+                phase seconds and reads/s. (h) a -t directory of two .fa files holding the matchUnique
+                genome's halves, both modes on the card (units, records,
+                fileid 1 reached) and the port on the CPU with the plain
+                host versions on the first 2,048 reads: records
+                byte-identical. (i) the matchUnique path with -shards 3 as
+                one CLI process and as two ranks of
+                `python -m real_tpu_torch.parallel.multihost` on the card
+                (gloo, a file store, -f halved, a timeout each), without
+                and with -exchange: the rank-order concatenation
+                byte-identical to the one process's records and to phase
+                5's; each rank's card, seconds and metrics;
+                torch.cuda.device_count()
+ 11. gatherbench  the tool's JSON line at both table sizes; the kernel's
                 launches counted over each run
- 11. times      each kernel at each main-path shape: kernel, plain version
+ 12. times      each kernel at each main-path shape: kernel, plain version
                 and one torch yardstick (the chain of index_select calls
                 that fetches the same words for the three match-step
                 entries, take_sum for gather_rowsum), device time (CUDA
@@ -134,6 +162,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+RANK_TIMEOUT_S = 300          # each subprocess of phase (i)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 L2_BYTES = 50 * 2**20
 PARITY_READS = 2048
@@ -1007,6 +1036,217 @@ def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
     return launches
 
 
+def _busy_union(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def trace_report(path: str, top: int = 8):
+    """(busy us, window us, the top kernels as [(name, us, calls)], and
+    {name: (us, calls)} of every kernel) of a Chrome trace exported by
+    torch.profiler: busy is the union of the card's kernel, memcpy and
+    memset intervals, the window the span of every timed event."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    window = max(float(e["ts"]) + float(e["dur"]) for e in events) \
+        - min(float(e["ts"]) for e in events)
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            us, calls = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (us + float(e["dur"]), calls + 1)
+    kernels = sorted(((n, us, c) for n, (us, c) in by_name.items()),
+                     key=lambda x: -x[1])
+    return _busy_union(device), window, kernels[:top], by_name
+
+
+def traced_phase(pc: PathCfg, g, r, blob_a, tmp):
+    """(f) run (a) through the CLI under -trace and -metrics."""
+    import glob
+    from real_tpu_torch.cli import main as cli
+    tdir = os.path.join(tmp, "trace")
+    out = os.path.join(tmp, "chr21_traced.txt")
+    mpath = os.path.join(tmp, "chr21_traced.json")
+    t = time.perf_counter()
+    cli.main(["-t", g, "-p", r, "-o", out, "-R", "0", "-B", str(pc.batch),
+              "-e", str(pc.totalkmax), "-trace", tdir, "-metrics", mpath])
+    wall = time.perf_counter() - t
+    with open(out, "rb") as f:
+        if f.read() != blob_a:
+            raise AssertionError("chr21 (f): traced records differ from "
+                                 "(a)'s")
+    files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"chr21 (f): {len(files)} trace files")
+    t = time.perf_counter()
+    busy, window, kernels, by_name = trace_report(files[0])
+    log(f"[trace] chr21 (a): device busy {busy / 1e6:.4f} s of "
+        f"{window / 1e6:.4f} s ({busy / window:.4f}); CLI run under the "
+        f"profiler {wall:.2f}s, trace {os.path.getsize(files[0])} B read in "
+        f"{time.perf_counter() - t:.2f}s")
+    for name, us, calls in kernels:
+        log(f"[trace]   {us / 1e3:9.3f} ms  {calls:6d} calls  {name[:110]}")
+    for want in ("probe_candidates_kernel", "verify_windows_kernel"):
+        if not any(want in n for n in by_name):
+            raise AssertionError(f"chr21 (f): no {want} in the trace")
+    with open(mpath) as f:
+        m = json.load(f)
+    log(f"[trace] chr21 (a) -metrics: phase_s {m['phase_s']}, wall_s "
+        f"{m['wall_s']}, reads_per_sec {m['reads_per_sec']}, mode "
+        f"{m['mode']}, native_paths_active {m['native_paths_active']}")
+
+
+def two_text_phase(torch, pc: PathCfg, codes, r, r_small, tmp, dev):
+    """(h) the genome's halves as two .fa files of one directory, both
+    modes on the card, against the port on the CPU on PARITY_READS
+    reads."""
+    from real_tpu_torch.ops import gather
+    d = os.path.join(tmp, "two_texts")
+    os.makedirs(d)
+    seq = np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
+    half = len(seq) // 2
+    for i, part in enumerate((seq[:half], seq[half:])):
+        with open(os.path.join(d, f"part{i}.fa"), "w") as f:
+            f.write(f">{pc.name}_part{i}\n")
+            f.write("\n".join(part[j:j + 60]
+                              for j in range(0, len(part), 60)) + "\n")
+    for unique in (True, False):
+        mode = "matchUnique" if unique else "matchAll"
+        cfg = dataclasses.replace(path_config(pc, d, r), match_unique=unique)
+        gather.reset_launch_counts()
+        _, texts, res, _, records, ph = run_once(cfg, r, dev)
+        fid = res.fileid[np.isin(res.st, (1, 2))] if unique else res.fileid
+        m = res.metrics
+        log(f"[twotexts] {mode}: {len(texts)} texts, units "
+            f"{m['units_dispatched']}, {records} records ({int((fid == 1).sum())}"
+            f" in file 1) in {ph['total']:.3f}s; launches probe_candidates "
+            f"{gather.probe_candidates.launches}, verify_windows "
+            f"{gather.verify_windows.launches}")
+        if len(texts) != 2 or m["units_dispatched"] != 2 \
+                or not (fid == 1).any() or not (fid == 0).any() \
+                or gather.probe_candidates.launches <= 0:
+            raise AssertionError(f"{mode} (h): the two texts were not both "
+                                 "matched on the card")
+        t = time.perf_counter()
+        rs2, texts_cpu, _, blob_cpu, n_cpu, _ = run_once(
+            dataclasses.replace(cfg, native_host=False), r_small, "cpu")
+        if n_cpu == 0 or blob_cpu != card_records(cfg, rs2, texts_cpu, res,
+                                                  PARITY_READS):
+            raise AssertionError(f"{mode} (h): CPU records differ from the "
+                                 "card's")
+        log(f"[twotexts] {mode}: CPU run (plain host versions) on "
+            f"{PARITY_READS} reads: {n_cpu} records byte-identical to the "
+            f"card's ({time.perf_counter() - t:.1f}s)")
+
+
+def _subprocesses(cmds, tag, tmp):
+    """Run the commands at once from the repository root, each with a
+    timeout and its output in a file; any non-zero exit fails. Returns
+    each one's wall seconds."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    logs = [os.path.join(tmp, f"{tag.replace(' ', '_')}.{i}.log")
+            for i in range(len(cmds))]
+    t0 = time.perf_counter()
+    procs = []
+    secs = []
+    try:
+        for c, path in zip(cmds, logs):
+            with open(path, "wb") as f:
+                procs.append(subprocess.Popen(c, cwd=REPO, env=env,
+                                              stdout=f,
+                                              stderr=subprocess.STDOUT))
+        for p, path in zip(procs, logs):
+            p.wait(timeout=RANK_TIMEOUT_S)
+            secs.append(time.perf_counter() - t0)
+            if p.returncode != 0:
+                with open(path, "rb") as f:
+                    raise AssertionError(f"{tag}: exit {p.returncode}:\n"
+                                         + f.read().decode()[-3000:])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return secs
+
+
+def ranks_phase(torch, pc: PathCfg, g, r, blob, tmp, world=2):
+    """(i) the path with -shards 3 as one CLI process and as `world` ranks,
+    without and with -exchange: rank R on card R % device_count, so that
+    ranks share the card of a one-card machine and each has its own on a
+    machine of `world` cards. `blob`: the records the one process must
+    print (None: nothing to hold it to)."""
+    cards = torch.cuda.device_count()
+    base = ["-t", g, "-p", r, "-R", "0", "-B", str(pc.batch),
+            "-e", str(pc.totalkmax), "-shards", "3"]
+    single = os.path.join(tmp, "one.txt")
+    (wall,) = _subprocesses(
+        [[sys.executable, "-m", "real_tpu_torch.cli.main", *base,
+          "-o", single, "-metrics", single + ".json"]], "one process", tmp)
+    with open(single, "rb") as f:
+        one = f.read()
+    with open(single + ".json") as f:
+        m = json.load(f)
+    if blob is not None and one != blob:
+        raise AssertionError(f"{pc.name} (i): the one-process -shards 3 "
+                             "records differ from the timed run's")
+    records = one.count(b"\n")
+    log(f"[ranks] {pc.name} -shards 3, one process: {wall:.2f}s wall "
+        f"(start to exit), wall_s {m['wall_s']} (match + output), phase_s "
+        f"{m['phase_s']}; torch.cuda.device_count() {cards}")
+    for exchange in (False, True):
+        tag = f"{world} ranks{' -exchange' if exchange else ''}"
+        out = os.path.join(tmp, f"ranks{int(exchange)}.txt")
+        xdir = os.path.join(tmp, "exchange")
+        extra = ["-exchange", xdir] if exchange else []
+        store = os.path.join(tmp, f"store{int(exchange)}")
+        secs = _subprocesses(
+            [[sys.executable, "-m", "real_tpu_torch.parallel.multihost",
+              "-init_method", f"file://{store}", "-world", str(world),
+              "-rank", str(rank), *base,
+              # ranks that share a card share its memory
+              "-f", str(0.75 / -(-world // cards)), "-o", out,
+              "-metrics", out + ".json", *extra] for rank in range(world)],
+            tag, tmp)
+        merged = b""
+        for rank in range(world):
+            with open(f"{out}.{rank}", "rb") as f:
+                merged += f.read()
+        if merged != one:
+            raise AssertionError(f"{pc.name} (i) {tag}: the rank-order "
+                                 "concatenation differs from one process's")
+        for rank in range(world):
+            with open(f"{out}.json.{rank}") as f:
+                m = json.load(f)
+            if ("index_load" in m["phase_s"]) != exchange:
+                raise AssertionError(f"{tag}: rank {rank} did not load "
+                                     "its shards from the exchange")
+            with open(os.path.join(tmp, f"{tag.replace(' ', '_')}.{rank}"
+                                   ".log")) as f:
+                card = re.search(r"^rank \d+ of \d+: device (\S+)$",
+                                 f.read(), re.M).group(1)
+            if card != f"cuda:{rank % cards}":
+                raise AssertionError(f"{tag}: rank {rank} ran on {card}")
+            log(f"[ranks] {pc.name} {tag}, rank {rank} on {card}: "
+                f"{m['num_reads']} reads, {secs[rank]:.2f}s wall (start to "
+                f"exit), wall_s {m['wall_s']}, phase_s {m['phase_s']}")
+        if exchange:
+            nbytes = sum(os.path.getsize(os.path.join(xdir, f))
+                         for f in os.listdir(xdir))
+            log(f"[ranks] exchange directory: {len(os.listdir(xdir))} "
+                f"files, {nbytes} B")
+        log(f"[ranks] {pc.name} {tag}: concatenation byte-identical to "
+            f"the one process's {records} records")
+
+
 def gatherbench_phase(big_m):
     """The tool's JSON line at both table sizes; kernel launches counted
     over each run."""
@@ -1221,7 +1461,7 @@ def drive(torch, dev) -> list:
 
         # the yeast read set (a million Python objects) is made after the
         # matchUnique path, so that path's host phases run as before
-        cfg_u, res_u, launches_u, _ = path_phase(
+        cfg_u, res_u, launches_u, blob_u = path_phase(
             torch, unique, gu, ru, ru_warm, truth_u, dev)
         bisection_phase(torch, unique, cfg_u, ru_warm, res_u, launches_u, dev)
         unique_parity_phase(cfg_u, ru_small, res_u)
@@ -1240,10 +1480,15 @@ def drive(torch, dev) -> list:
         bisection_phase(torch, chr21, cfg_c, rc_warm, res_c, launches_c, dev)
         del res_c
         chr21_runs_phase(torch, chr21, cfg_c, rc, blob_c, tmp, dev)
-        del blob_c
         launches_w = chr21_wide_phase(torch, chr21, gc21, rc_wide, rc_small,
                                       truth_c, dev)
         del truth_c
+
+        traced_phase(chr21, gc21, rc, blob_c, tmp)
+        del blob_c
+        two_text_phase(torch, unique, codes_u, ru, ru_small, tmp, dev)
+        ranks_phase(torch, unique, gu, ru, blob_u, tmp)
+        del blob_u
 
         rlaunches = gatherbench_phase(big_table.numel())
         return times_phase(
@@ -1251,6 +1496,17 @@ def drive(torch, dev) -> list:
             {unique.name: launches_u, yeast.name: launches_a,
              chr21.name: launches_c, **launches_w},
             rcases, rerrs, rlaunches)
+
+
+def ranks_only(torch, world: int) -> None:
+    """--ranks N: the matchUnique data and phase (i), N ranks on N cards."""
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"--ranks {world} needs {world} cards, this "
+                         f"machine has {torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        g, codes = make_genome(tmp, UNIQUE)
+        r = make_reads(tmp, UNIQUE, codes)[0]
+        ranks_phase(torch, UNIQUE, g, r, None, tmp, world=world)
 
 
 def main() -> int:
@@ -1264,6 +1520,13 @@ def main() -> int:
     t_all = time.perf_counter()
     name, _ = card_phase(torch)
     build_phase()
+    if "--ranks" in sys.argv:
+        ranks_only(torch, int(sys.argv[sys.argv.index("--ranks") + 1]))
+        log(f"[done] {time.perf_counter() - t_all:.1f}s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     kernels = drive(torch, "cuda")
     log("kernels: gather_windows, probe_candidates (32-bit and 64-bit "
         "entries), verify_windows, gather_rowsum")

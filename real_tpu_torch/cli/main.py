@@ -9,7 +9,8 @@ Flags mirror real_tpu's CLI (RealOptions.cpp:142-396), plus -device:
            [-gcmut_bias x] [-filter_level 0..4] [-v 0|1]
            [-B batch] [-K cand_cap] [-S survivor_cap] [-device cuda|cpu]
            [-native 0|1] [-shards n] [-ckpt path] [-ckpt_every units]
-           [-watchdog seconds] [-debug 0|1]
+           [-watchdog seconds] [-debug 0|1] [-metrics path] [-trace dir]
+           [-exchange dir]
 
 -R 1 (the default) keeps the parsed reads in a store directory next to the
 read file (io/readstore.py) and loads it on later runs. -native 0 runs the
@@ -25,15 +26,25 @@ every -ckpt_every index units and a later run with the same arguments
 resumes there; -watchdog aborts a run whose device fetch hangs; -debug 1
 checks every step's scores and the result's invariants.
 
--trace, -metrics and -exchange raise NotImplementedError: run metrics, the
-profiler trace and the multi-process build are not ported yet, and neither
-is a run over several devices.
+-metrics writes the run's metrics as JSON after the records: the phase
+seconds (`phase_s`), the overflow reruns, the unit loop's account and
+wall_s, num_reads, reads_per_sec, mode and native_paths_active. -trace
+records matching and output with torch.profiler (CPU and CUDA activities on
+the card, the CPU alone under -device cpu) and writes one Chrome trace into
+the directory. -exchange <dir> splits the index build between the ranks of
+a multi-process run (parallel/multihost.py, which also runs one rank of
+such a run); in a single process it changes nothing. A run over several
+devices with index shards spread across them is not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import socket
 import sys
+import time
 from typing import List, Optional
 
 from real_tpu_torch.config import RealConfig
@@ -86,26 +97,10 @@ def parse_args(argv: List[str]) -> RealConfig:
         print(__doc__, file=sys.stderr)
         raise SystemExit("Mandatory arguments -t/-p/-o missing")
     cfg.validate()
-    _check_supported(cfg)
     return cfg
 
 
-def _check_supported(cfg: RealConfig) -> None:
-    """Raise for the options the port does not run yet."""
-    missing = []
-    if cfg.trace:
-        missing.append("-trace (profiler trace)")
-    if cfg.metrics_json:
-        missing.append("-metrics (run metrics file)")
-    if cfg.build_exchange_dir:
-        missing.append("-exchange (multi-process build)")
-    if missing:
-        raise NotImplementedError(
-            "not ported to real_tpu_torch yet: " + ", ".join(missing))
-
-
 def main(argv: Optional[List[str]] = None) -> int:
-    from real_tpu_torch.cli.output import write_all_arrays, write_unique
     from real_tpu_torch.engine import driver
     from real_tpu_torch.io import readstore
 
@@ -114,6 +109,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     rs = readstore.parse_reads_cached(
         cfg.patternfilename, cfg.quality_offset,
         rewrite=cfg.rewritepatterns, use_native=cfg.native_host)
+    return run(cfg, rs, device)
+
+
+def run(cfg: RealConfig, rs, device) -> int:
+    """Match the parsed reads `rs` against cfg's texts on `device` and
+    write the records, then the -metrics file; -trace records the match
+    and the output. main() parses the whole read file, one rank of a
+    multi-process run only its slice (parallel/multihost.py)."""
+    from real_tpu_torch.cli.output import write_all_arrays, write_unique
+    from real_tpu_torch.engine import driver
+
     cfg.fastq = rs.fastq
     print(f"pattern file is {'FASTQ' if rs.fastq else 'FASTA'}",
           file=sys.stderr)
@@ -123,20 +129,71 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("Warning: gapped matching (-g) is experimental and disabled "
               "in the reference (real.cpp:23); ignoring it.",
               file=sys.stderr)
-    if cfg.match_unique:
-        result = driver.run_match_unique(cfg, rs, texts, device)
-    else:
-        result = driver.run_match_all(cfg, rs, texts, device, as_arrays=True)
-    with (contextlib.nullcontext(sys.stdout) if cfg.outputfilename == "-"
-          else open(cfg.outputfilename, "w")) as out:
+    t0 = time.perf_counter()
+    with _profiled(cfg.trace, device):
         if cfg.match_unique:
-            unique = write_unique(out, rs, result, texts, cfg.scores,
-                                  cfg.native_host)
-            print(f"unique: {unique}", file=sys.stderr)
+            result = driver.run_match_unique(cfg, rs, texts, device)
         else:
-            write_all_arrays(out, rs, result.cols, texts, cfg.scores,
-                             cfg.native_host)
+            result = driver.run_match_all(cfg, rs, texts, device,
+                                          as_arrays=True)
+        with (contextlib.nullcontext(sys.stdout)
+              if cfg.outputfilename == "-"
+              else open(cfg.outputfilename, "w")) as out:
+            if cfg.match_unique:
+                unique = write_unique(out, rs, result, texts, cfg.scores,
+                                      cfg.native_host)
+                print(f"unique: {unique}", file=sys.stderr)
+            else:
+                write_all_arrays(out, rs, result.cols, texts, cfg.scores,
+                                 cfg.native_host)
+    if cfg.metrics_json:
+        _write_metrics(cfg, result.metrics, rs.num_reads,
+                      time.perf_counter() - t0)
     return 0
+
+
+def _write_metrics(cfg: RealConfig, metrics: dict, num_reads: int,
+                  wall: float) -> None:
+    """The result's metrics plus real_tpu's five run keys (its -metrics
+    file, real_tpu/cli/main.py), phase seconds to 3 decimals as there.
+    `wall` runs from before the match to after the output."""
+    m = dict(metrics, phase_s={k: round(v, 3)
+                               for k, v in metrics["phase_s"].items()})
+    m.update({"wall_s": round(wall, 3), "num_reads": num_reads,
+              "reads_per_sec": round(num_reads / max(wall, 1e-9), 1),
+              "mode": "unique" if cfg.match_unique else "all",
+              # the native library is never silently absent here
+              # (native.get_lib raises), so the flag says which was asked
+              "native_paths_active": cfg.native_host})
+    with open(cfg.metrics_json, "w") as f:
+        json.dump(m, f, indent=1)
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir: str, device):
+    """-trace: torch.profiler over the block, one Chrome trace written into
+    `trace_dir` (created if missing) afterwards. CPU and CUDA activities on
+    the card, the CPU alone on the CPU. A trace of the card that holds no
+    device activity (no CUPTI) raises instead of passing for one."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    on_card = device.type == "cuda"
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+        yield
+        if on_card:
+            torch.cuda.synchronize(device)
+    if on_card and not any(e.device_type() == DeviceType.CUDA
+                           for e in prof.profiler.kineto_results.events()):
+        raise RuntimeError("-trace: the profiler recorded no activity on "
+                           "the card (is CUPTI available?)")
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"{socket.gethostname()}.{os.getpid()}.pt.trace.json"))
 
 
 if __name__ == "__main__":

@@ -64,11 +64,14 @@ class RealConfig:
     watchdog_s: int = 900        # -watchdog <s>: abort loudly if one
                                  # blocking device fetch exceeds this many
                                  # seconds (utils/watchdog.py); 0 disables
-    # Flags the CLI parses for parity with real_tpu's and raises
-    # NotImplementedError for (cli/main.py): not ported yet.
-    trace: str = ""              # -trace <dir>
-    metrics_json: str = ""       # -metrics <path>
-    build_exchange_dir: str = "" # -exchange <dir>
+    trace: str = ""              # -trace <dir>: torch.profiler trace of
+                                 # matching and output (cli/main.py)
+    metrics_json: str = ""       # -metrics <path>: the run's metrics as
+                                 # JSON (phase seconds, counts, reads/s)
+    build_exchange_dir: str = "" # -exchange <dir>: in a multi-process run
+                                 # each rank builds the index shards it
+                                 # owns and loads the others' from this
+                                 # shared directory (parallel/multihost.py)
     device: str = "cuda"         # -device cuda|cpu
     # -native 0: the host phases (parsing, row packing, hit sort, record
     # formatting) take their plain NumPy versions, not native/readpack.cpp

@@ -28,8 +28,11 @@ are rerun from scratch with 16x caps — the fixed-shape answer to
 std::equal_range's unbounded ranges; a single-unit run keeps its index for
 those reruns. With -ckpt the state goes to disk after completed units and
 a later run skips them (engine/checkpoint.py); every blocking device fetch
-sits under the watchdog (utils/watchdog.py). Several devices wait for a
-later slice of the port.
+sits under the watchdog (utils/watchdog.py). In a multi-process run each
+process matches its own read slice (parallel/multihost.py); with -exchange
+the ranks split the index build between them and load each other's
+shards. Index shards spread across several devices wait for a later slice
+of the port.
 
 Entry points run on the card: `device` defaults to "cuda" and raises
 without CUDA; only an explicit device="cpu" runs on the CPU.
@@ -53,8 +56,8 @@ from real_tpu_torch.config import RealConfig
 from real_tpu_torch.engine import checkpoint as ckpt_mod
 from real_tpu_torch.engine.matchstep import (CompactHits, MatchState,
                                              initial_state, match_step)
-from real_tpu_torch.index.build import (build_index, pick_bucket_bits,
-                                        shard_windows)
+from real_tpu_torch.index.build import (SignatureIndex, build_index,
+                                        pick_bucket_bits, shard_windows)
 from real_tpu_torch.io import fasta, pipeline, reads as reads_io
 from real_tpu_torch.parallel import plan
 from real_tpu_torch.scoring.scoring import Scoring, score_tables
@@ -159,6 +162,17 @@ def _bsearch_steps_static(num_windows: int, cand_cap: int,
     occ = max(8.0 * max(occ, 1.0), float(2 * cand_cap))
     steps = int(np.ceil(np.log2(occ + 1)))
     return min(-(-steps // 4) * 4 + extra, 30)
+
+
+def _build(cfg: RealConfig, text: PackedText, start: int, num_windows: int,
+           reads: int, splan: plan.StreamShardPlan) -> SignatureIndex:
+    """The index over windows [start, start+num_windows). Its bucket width
+    comes from the FULL read-set size, so that overflow reruns build (and
+    reuse) the same table as the first pass."""
+    bbits = pick_bucket_bits(cfg.seedl, num_windows, reads,
+                             cap=splan.bucket_bits_cap)
+    return build_index(text, cfg.seedl, start=start, num_windows=num_windows,
+                       bucket_bits=bbits)
 
 
 def _shard_bounds(num_windows: int, num_shards: int) -> List[Tuple[int, int]]:
@@ -352,11 +366,17 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
                        extra_steps: int = 0,
                        index_cache: Optional[Dict] = None, reads: int = 0,
                        extra_reserved: int = 0,
-                       streaming: bool = False) -> Dict[str, object]:
+                       streaming: bool = False,
+                       exchange=None) -> Dict[str, object]:
     """The outer loop: for each usable text and each of its index shards,
     call visit(fi, text, index, bsearch_steps). The first skip_units
     (file, shard) units are skipped entirely (checkpoint resume) — their
     index builds never run. Returns the loop's account of itself.
+
+    exchange (a multihost.BuildExchange): every rank takes rank 0's plan
+    (its read slice, and so its budget, may differ from the others'),
+    builds and publishes the units it owns, then loads every unit, its own
+    included, from the exchange.
 
     Every text is planned against ALL resident texts' bytes plus
     extra_reserved (resident reads, the step's workspace). visit returns
@@ -379,10 +399,25 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
                              streaming=streaming, reads=reads)
         per_text.append((fi, text, _shard_bounds(num_windows, splan.shards),
                          splan))
+    if exchange is not None:
+        texts_by_fi = {fi: text for fi, text in usable}
+        per_text = [(fi, texts_by_fi[fi], bounds, splan)
+                    for fi, bounds, splan in exchange.agree(
+                        [(fi, b, sp) for fi, _, b, sp in per_text])]
     total_units = sum(len(b) for _, _, b, _ in per_text)
     account = {"units": total_units, "units_skipped": 0,
                "units_dispatched": 0, "reserved_bytes": int(reserved),
                "plans": [dataclasses.asdict(sp) for _, _, _, sp in per_text]}
+    if exchange is not None:
+        u = 0
+        with prog.phase("index_build"):
+            for fi, text, bounds, splan in per_text:
+                for s, e in bounds:
+                    u += 1
+                    if u <= skip_units or not exchange.owns(u - 1):
+                        continue
+                    exchange.save(u - 1, _build(cfg, text, s, e - s, reads,
+                                                splan))
     unit = 0
     inflight: List = []
     index = None
@@ -401,14 +436,12 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
             cached = index_cache.get(ck) if index_cache is not None else None
             if cached is not None:
                 index = cached
+            elif exchange is not None:
+                with prog.phase("index_load"):
+                    index = exchange.load(unit - 1)
             else:
-                # bucket-width hint: the FULL read-set size, so overflow
-                # reruns build (and reuse) the same table as the first pass
-                bbits = pick_bucket_bits(cfg.seedl, e - s, reads,
-                                         cap=splan.bucket_bits_cap)
                 with prog.phase("index_build"):
-                    index = build_index(text, cfg.seedl, start=s,
-                                        num_windows=e - s, bucket_bits=bbits)
+                    index = _build(cfg, text, s, e - s, reads, splan)
                 if index_cache is not None and total_units == 1:
                     index_cache[ck] = index
             steps = _bsearch_steps_static(e - s, cand_cap, index.bucket_bits,
@@ -566,7 +599,8 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
         index_cache=_index_cache, reads=numpat,
         extra_reserved=source.resident_device_bytes
         + _step_workspace_bytes(plans, survivor_cap),
-        streaming=not source.resident)
+        streaming=not source.resident,
+        exchange=_make_exchange(cfg, _depth, dev))
 
     # the match loop only dispatches; its device work completes here
     with prog.phase("drain"):
@@ -608,6 +642,19 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
     if cfg.debug_checks and _depth == 0:
         validate_result(cfg, result, texts)
     return result
+
+
+def _make_exchange(cfg: RealConfig, depth: int, dev: torch.device):
+    """A BuildExchange when -exchange <dir> is set in a multi-process run
+    (torch.distributed initialized, more than one rank); top-level pass
+    only: overflow reruns build their small shards locally."""
+    if not cfg.build_exchange_dir or depth:
+        return None
+    from real_tpu_torch.parallel import multihost
+    topo = multihost.current_topology()
+    if topo.process_count <= 1:
+        return None
+    return multihost.BuildExchange(cfg.build_exchange_dir, topo, dev)
 
 
 def _add_rerun_phases(phase_s: Dict[str, float],
@@ -935,7 +982,8 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
         index_cache=_index_cache, reads=rs.num_reads,
         extra_reserved=source.resident_device_bytes
         + _step_workspace_bytes(source.plans, survivor_cap),
-        streaming=not source.resident)
+        streaming=not source.resident,
+        exchange=_make_exchange(cfg, _depth, dev))
 
     with prog.phase("drain"):
         drain(0)

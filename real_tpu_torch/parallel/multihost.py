@@ -1,0 +1,238 @@
+"""Several processes over one read file (counterpart of
+real_tpu/parallel/multihost.py).
+
+The reference is strictly single-node. The port runs several processes
+("ranks") joined through torch.distributed, each on its own card while
+there are cards enough and several on one card past that:
+
+* `initialize` joins the job: an explicit init method (a `file://` store
+  or `tcp://host:port`), world size and rank, or torchrun's RANK /
+  WORLD_SIZE / MASTER_ADDR / MASTER_PORT. The backend is gloo: the ranks
+  only meet, matching exchanges nothing between them, and NCCL refuses two
+  ranks on one card. A plain single process stays a no-op.
+* Device: `rank_device` gives a rank asking for plain "cuda" its own card,
+  LOCAL_RANK under torchrun, else the rank modulo the card count.
+* Input: each rank parses only its contiguous slice of the read file
+  (`parse_host_slice` -> io/reads.parse_reads_sliced); the genome is
+  parsed and packed by every rank.
+* Output: each rank writes its slice's records; concatenating the ranks'
+  outputs in rank order reproduces the single-process file byte for byte
+  (slices are contiguous in read order and the output pass is read-ordered).
+* `BuildExchange` (-exchange <dir>): index shards are owned round-robin by
+  rank; every rank takes rank 0's shard plan, builds only its own shards
+  and loads the others' from a shared directory, so the build is 1/P per
+  process.
+
+`python -m real_tpu_torch.parallel.multihost` runs one rank of such a job
+through the CLI (`main`). tests/test_torch_multihost.py spawns real
+processes and holds the concatenation equal to the one-process file.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from real_tpu_torch.convert import index_from_numpy, index_to_numpy
+
+
+@dataclasses.dataclass
+class HostTopology:
+    process_index: int
+    process_count: int
+
+
+def current_topology() -> HostTopology:
+    """This process's rank and the job's size (0 of 1 outside a job)."""
+    if dist.is_available() and dist.is_initialized():
+        return HostTopology(dist.get_rank(), dist.get_world_size())
+    return HostTopology(0, 1)
+
+
+def initialize(init_method: Optional[str] = None,
+               world_size: Optional[int] = None,
+               rank: Optional[int] = None,
+               timeout_s: float = 600.0) -> HostTopology:
+    """Join the multi-process job over gloo.
+
+    With an init method or a world size above 1 they are passed through
+    (with the rank); with neither, torchrun's environment (WORLD_SIZE > 1
+    with RANK, MASTER_ADDR, MASTER_PORT) is read through `env://`. A plain
+    single process stays a no-op. A rank that does not arrive within
+    timeout_s makes the rendezvous raise."""
+    if not dist.is_initialized():
+        timeout = datetime.timedelta(seconds=timeout_s)
+        if init_method is not None or (world_size or 1) > 1:
+            dist.init_process_group("gloo", init_method=init_method,
+                                    world_size=world_size, rank=rank,
+                                    timeout=timeout)
+        elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            dist.init_process_group("gloo", init_method="env://",
+                                    timeout=timeout)
+    return current_topology()
+
+
+def rank_device(device: str, topo: HostTopology, device_count: int,
+                env=None) -> str:
+    """The device this rank runs on. Plain "cuda" in a job of several ranks
+    names the rank's own card: LOCAL_RANK under torchrun (the rank among
+    its node's processes), else the rank; modulo the card count, so that
+    ranks share cards once there are more ranks than cards. An explicit
+    card ("cuda:1"), the CPU and a single process stay as asked."""
+    if device != "cuda" or topo.process_count <= 1:
+        return device
+    env = os.environ if env is None else env
+    local = int(env.get("LOCAL_RANK", topo.process_index))
+    return f"cuda:{local % max(device_count, 1)}"
+
+
+def parse_host_slice(path: str, topo: HostTopology,
+                     quality_offset: int = 0, use_native: bool = True):
+    """Parse only THIS rank's record slice of the read file. Returns a
+    rank-local ReadSet (patids 0..n_local): matching and output run on it
+    directly, and the rank-order concat of outputs equals the
+    single-process file."""
+    from real_tpu_torch.io import reads as reads_io
+    rs, _lo, _total = reads_io.parse_reads_sliced(
+        path, topo.process_index, topo.process_count, quality_offset,
+        use_native=use_native)
+    return rs
+
+
+class BuildExchange:
+    """De-replicated index build: index units are owned round-robin by
+    rank (unit % P); each rank builds and publishes its own, and every rank
+    loads every unit in ascending order (the order scores mode needs: its
+    merge is not associative, tests/test_torch_monoid.py).
+
+    Every rank must see the same units: `agree` hands rank 0's plan to all
+    (a rank's read slice, and with it the planner's budget, may differ from
+    the others'), after rank 0 has cleared the shards an earlier run left
+    in the directory, whose markers would otherwise pass for this run's.
+
+    Transport is a shared directory, in real_tpu's layout so that either
+    package reads the other's shards: `shard_{unit:05d}.npz` holding sig
+    (uint32; the low plane of wide signatures), pos, bb, seedl,
+    bucket_bits and, for wide seeds, sig_hi, published through os.replace
+    and followed by a `shard_{unit:05d}.done` marker that readers poll for.
+    A shard that does not appear within timeout_s raises TimeoutError."""
+
+    def __init__(self, root: str, topo: HostTopology, device,
+                 timeout_s: float = 600.0):
+        self.root = root
+        self.topo = topo
+        self.device = device
+        self.timeout_s = timeout_s
+        os.makedirs(root, exist_ok=True)
+
+    def agree(self, plan):
+        """Rank 0's `plan` on every rank (a broadcast over the job's
+        group); rank 0 first removes every shard file in the directory."""
+        if self.topo.process_index == 0:
+            for name in os.listdir(self.root):
+                if name.startswith("shard_"):
+                    os.remove(os.path.join(self.root, name))
+        box = [plan]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def owns(self, unit: int) -> bool:
+        return unit % self.topo.process_count == self.topo.process_index
+
+    def _base(self, unit: int) -> str:
+        return os.path.join(self.root, f"shard_{unit:05d}")
+
+    def save(self, unit: int, index) -> None:
+        """Publish an owned unit's built index."""
+        a = index_to_numpy(index)
+        arrays = dict(sig=a["sig"], pos=a["pos"], bb=a["bb"],
+                      seedl=np.asarray([a["seedl"]]),
+                      bucket_bits=np.asarray([a["bucket_bits"]]))
+        if a["sig_hi"] is not None:
+            arrays["sig_hi"] = a["sig_hi"]
+        base = self._base(unit)
+        np.savez(base + ".tmp.npz", **arrays)
+        os.replace(base + ".tmp.npz", base + ".npz")
+        with open(base + ".done.tmp", "w") as f:
+            f.write("ok")
+        os.replace(base + ".done.tmp", base + ".done")
+
+    def load(self, unit: int):
+        """Wait until the owning rank has published `unit`, then load it
+        onto this rank's device."""
+        base = self._base(unit)
+        t0 = time.monotonic()
+        while not os.path.exists(base + ".done"):
+            if time.monotonic() - t0 > self.timeout_s:
+                raise TimeoutError(
+                    f"rank {self.topo.process_index}: shard {unit} not "
+                    f"published by its owner within {self.timeout_s}s")
+            time.sleep(0.02)
+        with np.load(base + ".npz") as z:
+            return index_from_numpy(
+                z["sig"], z["pos"], z["bb"], int(z["bucket_bits"][0]),
+                int(z["seedl"][0]), self.device,
+                sig_hi=z["sig_hi"] if "sig_hi" in z else None)
+
+
+USAGE = ("usage: python -m real_tpu_torch.parallel.multihost "
+         "[-init_method URL -world N -rank R] <real_tpu_torch CLI flags>")
+
+
+def _rank_path(path: str, topo: HostTopology) -> str:
+    """A per-rank file name: `path` with `.<rank>` appended ('-' and ''
+    stay as they are)."""
+    return path if path in ("", "-") else f"{path}.{topo.process_index}"
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """One rank of a multi-process run through the CLI: join the job
+    (-init_method / -world / -rank, or torchrun's environment), parse this
+    rank's slice of -p, match it and write the records to `<-o>.<rank>`
+    (and -metrics / -ckpt likewise per rank). `cat out.0 out.1 ...` is the
+    one-process output."""
+    from real_tpu_torch.cli import main as cli
+    from real_tpu_torch.engine import driver
+    args = list(sys.argv[1:] if argv is None else argv)
+    job = {}
+    for flag in ("-init_method", "-world", "-rank"):
+        if flag in args:
+            i = args.index(flag)
+            job[flag] = args[i + 1]
+            del args[i:i + 2]
+    if not args:
+        print(USAGE, file=sys.stderr)
+        return 1
+    cfg = cli.parse_args(args)
+    driver.resolve_device(cfg.device)     # no card: raise before joining
+    topo = initialize(job.get("-init_method"),
+                      int(job["-world"]) if "-world" in job else None,
+                      int(job["-rank"]) if "-rank" in job else None)
+    try:
+        device = driver.resolve_device(rank_device(
+            cfg.device, topo, torch.cuda.device_count()))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        print(f"rank {topo.process_index} of {topo.process_count}: device "
+              f"{device}", file=sys.stderr)
+        cfg.outputfilename = _rank_path(cfg.outputfilename, topo)
+        cfg.metrics_json = _rank_path(cfg.metrics_json, topo)
+        cfg.checkpoint = _rank_path(cfg.checkpoint, topo)
+        rs = parse_host_slice(cfg.patternfilename, topo, cfg.quality_offset,
+                              cfg.native_host)
+        return cli.run(cfg, rs, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

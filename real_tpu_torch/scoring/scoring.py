@@ -81,6 +81,11 @@ class Scoring:
                     ll[(c0 << 8) | (c1 << 6) | q] = base * (1.0 - qp[q])
         self.ll = ll
 
+    def raw_log_score(self, ref: int, read: int, q: int) -> float:
+        """LL[ref, read, q]: one entry of the quality-weighted log-odds
+        table (Scoring::rawLogScore)."""
+        return float(self.ll[(ref << 8) | (read << 6) | q])
+
     def ll_f32_pair(self):
         """Two-float (hi, lo) split of the LUT."""
         hi = self.ll.astype(np.float32)

@@ -79,18 +79,53 @@ def test_cli_writes_the_same_file(tmp_path):
                                                use_mesh=False)
 
 
-@pytest.mark.parametrize("flags", [["-exchange", "xdir"],
-                                   ["-exchange", "xdir", "-shards", "4"],
-                                   ["-trace", "tr", "-l", "48"],
-                                   ["-trace", "tr"], ["-metrics", "m.json"],
-                                   ["-metrics", "m.json", "-debug", "1",
-                                    "-ckpt", "c.ckpt"]])
-def test_cli_flags_this_slice_lacks_raise(flags):
-    """-trace, -metrics and -exchange are not ported, alone or beside
-    flags that are."""
-    with pytest.raises(NotImplementedError):
-        t_main.parse_args(["-t", "g.fa", "-p", "r.fa", "-o", "o.txt",
-                           *flags])
+@pytest.mark.parametrize("flags,fields", [
+    (["-exchange", "xdir"], {"build_exchange_dir": "xdir"}),
+    (["-exchange", "xdir", "-shards", "4"],
+     {"build_exchange_dir": "xdir", "index_shards": 4}),
+    (["-trace", "tr", "-l", "48"], {"trace": "tr", "seedl": 48}),
+    (["-trace", "tr"], {"trace": "tr"}),
+    (["-metrics", "m.json"], {"metrics_json": "m.json"}),
+    (["-metrics", "m.json", "-debug", "1", "-ckpt", "c.ckpt"],
+     {"metrics_json": "m.json", "debug_checks": True,
+      "checkpoint": "c.ckpt"})])
+def test_cli_flags_this_slice_lacks_raise(flags, fields):
+    """-trace, -metrics and -exchange parse into their fields, alone or
+    beside other flags, and the parse raises nothing."""
+    cfg = t_main.parse_args(["-t", "g.fa", "-p", "r.fa", "-o", "o.txt",
+                             *flags])
+    assert {k: getattr(cfg, k) for k in fields} == fields
+    unset = {"trace", "metrics_json", "build_exchange_dir"} - set(fields)
+    assert all(getattr(cfg, k) == "" for k in unset)
+
+
+def _two_text_dir(tmp_path, genome):
+    """A directory of two .fa files holding the genome's fragments."""
+    d = tmp_path / "texts"
+    d.mkdir()
+    records = open(genome).read().split(">")[1:]
+    half = len(records) // 2
+    for name, part in (("a.fa", records[:half]), ("b.fa", records[half:])):
+        (d / name).write_text("".join(">" + r for r in part))
+    return str(d)
+
+
+@pytest.mark.parametrize("unique", [True, False], ids=["unique", "all"])
+def test_two_text_directory_equals_real_tpu(tmp_path, unique):
+    """-t <directory> with two .fa files: fileid 1 and the file transition
+    of the unit loop, in both modes, against real_tpu's records."""
+    genome, reads = ab_util.make_inputs(tmp_path, n=24000, numpat=240,
+                                        patlen=80, seed=17, num_fragments=4)
+    textdir = _two_text_dir(tmp_path, genome)
+    out = tmp_path / "out.txt"
+    assert t_main.main(["-device", "cpu", "-t", textdir, "-p", reads,
+                        "-o", str(out), "-B", "512", "-R", "0",
+                        "-u", str(int(unique))]) == 0
+    ours = out.read_text()
+    assert ours == ab_util.run_ours(textdir, reads, unique=unique,
+                                    use_mesh=False)
+    # records name fragments of both files
+    assert len({line.split("\t")[7] for line in ours.splitlines()}) == 4
 
 
 @pytest.mark.parametrize("flags,field,value", [

@@ -2,6 +2,7 @@
 run on the CPU only when asked to."""
 
 import ast
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -15,6 +16,7 @@ from real_tpu_torch.cli import main as t_main
 from real_tpu_torch.config import RealConfig
 from real_tpu_torch.engine import driver
 from real_tpu_torch.io import reads as reads_io
+from real_tpu_torch.parallel import multihost
 from real_tpu_torch.tools import gatherbench
 from tests import ab_util
 
@@ -94,6 +96,18 @@ def test_entry_points_without_device_raise_without_cuda(tmp_path, no_cuda):
         t_main.main(["-t", genome, "-p", reads,
                      "-o", str(tmp_path / "o.txt")])
     assert not (tmp_path / "o.txt").exists()
+    # a run with -exchange names no device either
+    x_cfg = dataclasses.replace(cfg, build_exchange_dir=str(tmp_path / "xdir"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.run_match_unique(x_cfg, rs, texts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.run_match_all(x_cfg, rs, texts, as_arrays=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.main(["-t", genome, "-p", reads, "-o",
+                        str(tmp_path / "x.txt"), "-exchange",
+                        str(tmp_path / "xdir")])
+    assert not (tmp_path / "x.txt.0").exists()
+    assert not (tmp_path / "xdir").exists()
 
 
 NATIVE_MODULES = ["real_tpu_torch/native/__init__.py",
@@ -109,6 +123,18 @@ PLANNER_MODULES = ["parallel/plan.py", "engine/checkpoint.py",
 def test_planner_and_run_control_modules_are_walked(rel):
     """The modules of the shard planner, the checkpoints and the watchdog
     are among the imported modules and the checked sources."""
+    assert os.path.join(REPO, "real_tpu_torch", rel) in PORT_FILES
+    name = "real_tpu_torch." + rel[:-3].replace("/", ".")
+    assert name in _port_modules()
+
+
+SLICE_MODULES = ["parallel/multihost.py", "tools/cli.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_multihost_and_tools_modules_are_walked(rel):
+    """The multi-process run and the helper tools are among the imported
+    modules and the checked sources."""
     assert os.path.join(REPO, "real_tpu_torch", rel) in PORT_FILES
     name = "real_tpu_torch." + rel[:-3].replace("/", ".")
     assert name in _port_modules()
