@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (real_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ranks N     # phase (i) alone, N ranks, one per card
+    python3 chip_smoke.py --ranks N     # (i) and (j) alone, a card per rank
 
 Drives the port's four paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates in its 32-bit
@@ -32,11 +32,14 @@ PyTorch version, and holds every entry of the native host library
 and then, outside every timed run above, the flags and modules around the
 main path: (f) chr21 (a) through the CLI under -trace and -metrics, (h)
 the matchUnique genome split over two .fa files of one -t directory, in
-both modes, and (i) the matchUnique path as two ranks sharing the card,
-with and without -exchange.
+both modes, (i) the matchUnique path as two ranks sharing the card,
+with and without -exchange, and (j) index shards across ranks: the
+matchUnique, yeast matchAll, chr21 and chr21 -l 48 paths as mesh ranks
+sharing the card (python -m real_tpu_torch.parallel.multihost -mesh).
 
-With --ranks N it runs phases 1-2, the matchUnique data and phase (i)
-alone, as N ranks on N cards (one each); it needs N cards.
+With --ranks N it runs phases 1-2, the matchUnique data, phase (i) and the
+matchUnique -shards 2 mesh of (j) alone, as N ranks on N cards (one each;
+a 2 x 2 grid at N = 4); it needs N cards.
 
 Phases:
 
@@ -128,7 +131,20 @@ Phases:
                 and with -exchange: the rank-order concatenation
                 byte-identical to the one process's records and to phase
                 5's; each rank's card, seconds and metrics;
-                torch.cuda.device_count()
+                torch.cuda.device_count(). (j) the mesh: ranks of
+                `python -m real_tpu_torch.parallel.multihost -mesh` sharing
+                the card (gloo, -f 0.75 / ranks per card, a timeout each):
+                matchUnique -shards 1 as 2 ranks (a 2 x 1 grid), -shards
+                2 as 4 ranks (2 x 2), -shards 4 as 2 ranks (1 x 2, two
+                passes), yeast matchAll -shards 2, chr21 -shards 2 and
+                chr21 -l 48 -shards 2 on the 262,144 wide reads as 2 ranks
+                (1 x 2); each concatenation byte-identical to the one
+                process's records of its path (phases 5, 7, 9 (a) and (e));
+                every rank's card, grid coordinates, launches of
+                probe_candidates (the 64-bit entry at -l 48) and
+                verify_windows (> 0), wall_s, phase seconds with
+                mesh_gather, and seconds from start to exit; beside the
+                first run, whether gloo's all_gather takes CUDA tensors
  11. gatherbench  the tool's JSON line at both table sizes; the kernel's
                 launches counted over each run
  12. times      each kernel at each main-path shape: kernel, plain version
@@ -994,15 +1010,15 @@ def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
 def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
     """Run (e): -l 48 and -l 64 on the first WIDE_READS reads; launches of
     the 64-bit entry, truth share, CPU parity on PARITY_READS reads.
-    Returns {path name: launches}."""
+    Returns ({path name: launches}, {seedl: record bytes})."""
     from real_tpu_torch.ops import gather
-    launches = {}
+    launches, blobs = {}, {}
     for seedl in WIDE_SEEDLS:
         wpc = dataclasses.replace(pc, name=f"chr21_l{seedl}", seedl=seedl,
                                   num_reads=WIDE_READS)
         cfg = path_config(wpc, g, r_wide)
         gather.reset_launch_counts()
-        rs, texts, res, blob, records, ph = run_once(cfg, r_wide, dev)
+        rs, texts, res, blobs[seedl], records, ph = run_once(cfg, r_wide, dev)
         launches[wpc.name] = {
             "probe_candidates": gather.probe_candidates.launches_wide,
             "verify_windows": gather.verify_windows.launches}
@@ -1033,7 +1049,7 @@ def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
         log(f"[chr21] (e) -l {seedl}: CPU run (plain host versions) on "
             f"{PARITY_READS} reads: {n_cpu} records byte-identical to the "
             f"card's ({time.perf_counter() - t:.1f}s)")
-    return launches
+    return launches, blobs
 
 
 def _busy_union(intervals) -> float:
@@ -1183,7 +1199,8 @@ def ranks_phase(torch, pc: PathCfg, g, r, blob, tmp, world=2):
     without and with -exchange: rank R on card R % device_count, so that
     ranks share the card of a one-card machine and each has its own on a
     machine of `world` cards. `blob`: the records the one process must
-    print (None: nothing to hold it to)."""
+    print (None: nothing to hold it to). Returns the one process's
+    records."""
     cards = torch.cuda.device_count()
     base = ["-t", g, "-p", r, "-R", "0", "-B", str(pc.batch),
             "-e", str(pc.totalkmax), "-shards", "3"]
@@ -1245,6 +1262,114 @@ def ranks_phase(torch, pc: PathCfg, g, r, blob, tmp, world=2):
                 f"files, {nbytes} B")
         log(f"[ranks] {pc.name} {tag}: concatenation byte-identical to "
             f"the one process's {records} records")
+    return one
+
+
+def gloo_cuda_probe(torch, tmp):
+    """Started at once, read by gloo_cuda_report: whether gloo's
+    all_gather takes CUDA tensors in this torch, asked of a one-rank group
+    in a process of its own. Nothing switches on the answer: the mesh
+    stages its gather through pinned host memory either way."""
+    code = (
+        "import os, sys, torch, torch.distributed as dist\n"
+        "dist.init_process_group('gloo', init_method='file://' + "
+        "sys.argv[1], world_size=1, rank=0)\n"
+        "x = torch.arange(4, dtype=torch.int32, device='cuda')\n"
+        "out = [torch.empty_like(x)]\n"
+        "dist.all_gather(out, x)\n"
+        "torch.cuda.synchronize()\n"
+        "print('gathered', out[0].device, out[0].tolist())\n"
+        "dist.destroy_process_group()\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, os.path.join(tmp, "gloo_probe.store")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def gloo_cuda_report(torch, proc):
+    try:
+        text, _ = proc.communicate(timeout=RANK_TIMEOUT_S)
+    finally:
+        proc.kill()
+        proc.wait()
+    last = (text.strip().splitlines() or [""])[-1][:300]
+    log(f"[mesh] gloo all_gather on CUDA tensors, torch {torch.__version__}: "
+        + (f"takes them ({last})" if proc.returncode == 0
+           else f"refuses them (exit {proc.returncode}: {last})"))
+
+
+def mesh_run(torch, tag, pc: PathCfg, g, r, shards, world, want, tmp):
+    """(j) one mesh run: `world` ranks of `python -m
+    real_tpu_torch.parallel.multihost -mesh` on the card(s), -shards
+    `shards`; the rank-order concatenation must be `want`, every rank must
+    report its card, its grid coordinates and launches of both fused
+    entries (the 64-bit one for wide seeds). Returns the ranks' metrics."""
+    from real_tpu_torch.parallel import plan
+    cards = torch.cuda.device_count()
+    n_dp, n_shard = plan.choose_mesh_shape(world, shards)
+    slug = tag.replace(" ", "_")
+    out = os.path.join(tmp, f"mesh_{slug}.txt")
+    secs = _subprocesses(
+        [[sys.executable, "-m", "real_tpu_torch.parallel.multihost",
+          "-init_method", f"file://{os.path.join(tmp, slug + '.store')}",
+          "-world", str(world), "-rank", str(rank), "-mesh",
+          "-t", g, "-p", r, "-R", "0", "-B", str(pc.batch),
+          "-e", str(pc.totalkmax), "-u", str(int(pc.unique)),
+          "-l", str(pc.seedl), "-shards", str(shards),
+          # ranks that share a card share its memory
+          "-f", str(0.75 / -(-world // cards)), "-o", out,
+          "-metrics", out + ".json"] for rank in range(world)],
+        f"mesh {slug}", tmp)
+    merged = b""
+    for rank in range(world):
+        with open(f"{out}.{rank}", "rb") as f:
+            merged += f.read()
+    if merged != want:
+        raise AssertionError(f"(j) {tag}: the rank-order concatenation "
+                             "differs from the one process's records")
+    metrics = []
+    for rank in range(world):
+        with open(f"{out}.json.{rank}") as f:
+            m = json.load(f)
+        with open(os.path.join(tmp, f"mesh_{slug}.{rank}.log")) as f:
+            card = re.search(r"^rank \d+ of \d+: device (\S+)$", f.read(),
+                             re.M).group(1)
+        k = m["kernel_launches"]
+        gather_ms = m["phase_s"]["mesh_gather"] / max(m["mesh_gathers"], 1) \
+            * 1e3
+        log(f"[mesh] {tag}, rank {rank} (dp {m['mesh']['dp']}, shard "
+            f"{m['mesh']['shard']}) on {card}: {m['num_reads']} reads, "
+            f"units {m['units_dispatched']}, launches probe_candidates "
+            f"{k['probe_candidates']} (64-bit {k['probe_candidates_wide']}),"
+            f" verify_windows {k['verify_windows']}, gather_word_windows "
+            f"{k['gather_word_windows']}; {m['mesh_gathers']} gathers, "
+            f"{gather_ms:.3f} ms each; {secs[rank]:.2f}s start to exit, "
+            f"wall_s {m['wall_s']}, phase_s {m['phase_s']}")
+        if card != f"cuda:{rank % cards}":
+            raise AssertionError(f"(j) {tag}: rank {rank} ran on {card}")
+        if m["mesh"] != {"n_dp": n_dp, "n_shard": n_shard,
+                         "dp": rank // n_shard, "shard": rank % n_shard}:
+            raise AssertionError(f"(j) {tag}: rank {rank} at {m['mesh']}")
+        if k["probe_candidates"] <= 0 or k["verify_windows"] <= 0 \
+                or (pc.seedl > 32) != (k["probe_candidates_wide"] > 0):
+            raise AssertionError(f"(j) {tag}: rank {rank} did not launch "
+                                 "the fused kernels")
+        metrics.append(m)
+    records = merged.count(b"\n")
+    log(f"[mesh] {tag}: {n_dp} x {n_shard} grid, {world} ranks on {cards} "
+        f"card(s), concatenation byte-identical to the one process's "
+        f"{records} records")
+    return metrics
+
+
+def mesh_phase(torch, runs, tmp):
+    """(j) the mesh path: each of `runs` = (tag, path, genome, reads,
+    -shards, ranks, the one process's records) through mesh_run, with the
+    gloo probe alongside the first."""
+    probe = gloo_cuda_probe(torch, tmp)
+    for i, (tag, pc, g, r, shards, world, want) in enumerate(runs):
+        mesh_run(torch, tag, pc, g, r, shards, world, want, tmp)
+        if i == 0:
+            gloo_cuda_report(torch, probe)
 
 
 def gatherbench_phase(big_m):
@@ -1467,7 +1592,7 @@ def drive(torch, dev) -> list:
         unique_parity_phase(cfg_u, ru_small, res_u)
         del res_u, truth_u
         ra, ra_small, ra_warm, truth_a = make_reads(tmp, yeast, codes_a)
-        cfg_a, res_a, launches_a, _ = path_phase(
+        cfg_a, res_a, launches_a, blob_a = path_phase(
             torch, yeast, ga, ra, ra_warm, truth_a, dev)
         bisection_phase(torch, yeast, cfg_a, ra_warm, res_a, launches_a, dev)
         all_parity_phase(cfg_a, ra_small, res_a)
@@ -1480,15 +1605,24 @@ def drive(torch, dev) -> list:
         bisection_phase(torch, chr21, cfg_c, rc_warm, res_c, launches_c, dev)
         del res_c
         chr21_runs_phase(torch, chr21, cfg_c, rc, blob_c, tmp, dev)
-        launches_w = chr21_wide_phase(torch, chr21, gc21, rc_wide, rc_small,
-                                      truth_c, dev)
+        launches_w, blobs_w = chr21_wide_phase(torch, chr21, gc21, rc_wide,
+                                               rc_small, truth_c, dev)
         del truth_c
 
         traced_phase(chr21, gc21, rc, blob_c, tmp)
-        del blob_c
         two_text_phase(torch, unique, codes_u, ru, ru_small, tmp, dev)
         ranks_phase(torch, unique, gu, ru, blob_u, tmp)
-        del blob_u
+        mesh_phase(torch, [
+            ("matchUnique -shards 1", unique, gu, ru, 1, 2, blob_u),
+            ("matchUnique -shards 2", unique, gu, ru, 2, 4, blob_u),
+            ("matchUnique -shards 4", unique, gu, ru, 4, 2, blob_u),
+            ("yeast matchAll -shards 2", yeast, ga, ra, 2, 2, blob_a),
+            ("chr21 -shards 2", chr21, gc21, rc, 2, 2, blob_c),
+            ("chr21 -l 48 -shards 2", dataclasses.replace(
+                wide[0], num_reads=WIDE_READS), gc21, rc_wide, 2, 2,
+             blobs_w[48]),
+        ], tmp)
+        del blob_u, blob_a, blob_c, blobs_w
 
         rlaunches = gatherbench_phase(big_table.numel())
         return times_phase(
@@ -1499,14 +1633,17 @@ def drive(torch, dev) -> list:
 
 
 def ranks_only(torch, world: int) -> None:
-    """--ranks N: the matchUnique data and phase (i), N ranks on N cards."""
+    """--ranks N: the matchUnique data, phase (i) and the matchUnique
+    -shards 2 mesh of (j) (the 2 x 2 grid at N = 4), N ranks on N cards."""
     if torch.cuda.device_count() < world:
         raise SystemExit(f"--ranks {world} needs {world} cards, this "
                          f"machine has {torch.cuda.device_count()}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         g, codes = make_genome(tmp, UNIQUE)
         r = make_reads(tmp, UNIQUE, codes)[0]
-        ranks_phase(torch, UNIQUE, g, r, None, tmp, world=world)
+        one = ranks_phase(torch, UNIQUE, g, r, None, tmp, world=world)
+        mesh_phase(torch, [("matchUnique -shards 2", UNIQUE, g, r, 2, world,
+                            one)], tmp)
 
 
 def main() -> int:

@@ -33,8 +33,11 @@ records matching and output with torch.profiler (CPU and CUDA activities on
 the card, the CPU alone under -device cpu) and writes one Chrome trace into
 the directory. -exchange <dir> splits the index build between the ranks of
 a multi-process run (parallel/multihost.py, which also runs one rank of
-such a run); in a single process it changes nothing. A run over several
-devices with index shards spread across them is not ported yet.
+such a run); in a single process it changes nothing. The runner's -mesh
+(cfg.use_mesh) spreads the index shards over the ranks instead
+(parallel/mesh.py): its metrics add the rank's `mesh` coordinates and the
+`mesh_gather` phase. Every metrics file holds `kernel_launches`, the hand
+kernels' launches in the run (ops/gather.py), which stay 0 on the CPU.
 """
 
 from __future__ import annotations
@@ -116,9 +119,13 @@ def run(cfg: RealConfig, rs, device) -> int:
     """Match the parsed reads `rs` against cfg's texts on `device` and
     write the records, then the -metrics file; -trace records the match
     and the output. main() parses the whole read file, one rank of a
-    multi-process run only its slice (parallel/multihost.py)."""
+    multi-process run only its slice (parallel/multihost.py), a rank of a
+    mesh run (cfg.use_mesh) the whole file again: run lays the mesh out
+    (driver.plan_mesh) and matches the rank's row slice, and only a row's
+    shard-0 rank writes records (the others leave their output empty)."""
     from real_tpu_torch.cli.output import write_all_arrays, write_unique
     from real_tpu_torch.engine import driver
+    from real_tpu_torch.ops import gather
 
     cfg.fastq = rs.fastq
     print(f"pattern file is {'FASTQ' if rs.fastq else 'FASTA'}",
@@ -130,16 +137,26 @@ def run(cfg: RealConfig, rs, device) -> int:
               "in the reference (real.cpp:23); ignoring it.",
               file=sys.stderr)
     t0 = time.perf_counter()
+    launches = gather.launch_counts()
+    mesh_plan = None
+    if cfg.use_mesh:
+        # rs is the whole read set; this rank matches its row's slice
+        mesh_plan = driver.plan_mesh(cfg, rs, texts, device)
+        rs = rs.records(mesh_plan.lo, mesh_plan.hi)
     with _profiled(cfg.trace, device):
         if cfg.match_unique:
-            result = driver.run_match_unique(cfg, rs, texts, device)
+            result = driver.run_match_unique(cfg, rs, texts, device,
+                                             mesh_plan=mesh_plan)
         else:
             result = driver.run_match_all(cfg, rs, texts, device,
-                                          as_arrays=True)
+                                          as_arrays=True,
+                                          mesh_plan=mesh_plan)
         with (contextlib.nullcontext(sys.stdout)
               if cfg.outputfilename == "-"
               else open(cfg.outputfilename, "w")) as out:
-            if cfg.match_unique:
+            if mesh_plan is not None and mesh_plan.mesh.shard:
+                pass    # the row's shard-0 rank writes the row's records
+            elif cfg.match_unique:
                 unique = write_unique(out, rs, result, texts, cfg.scores,
                                       cfg.native_host)
                 print(f"unique: {unique}", file=sys.stderr)
@@ -147,8 +164,10 @@ def run(cfg: RealConfig, rs, device) -> int:
                 write_all_arrays(out, rs, result.cols, texts, cfg.scores,
                                  cfg.native_host)
     if cfg.metrics_json:
-        _write_metrics(cfg, result.metrics, rs.num_reads,
-                      time.perf_counter() - t0)
+        now = gather.launch_counts()
+        _write_metrics(cfg, dict(result.metrics, kernel_launches={
+            k: now[k] - launches[k] for k in now}), rs.num_reads,
+            time.perf_counter() - t0)
     return 0
 
 
@@ -156,7 +175,8 @@ def _write_metrics(cfg: RealConfig, metrics: dict, num_reads: int,
                   wall: float) -> None:
     """The result's metrics plus real_tpu's five run keys (its -metrics
     file, real_tpu/cli/main.py), phase seconds to 3 decimals as there.
-    `wall` runs from before the match to after the output."""
+    `wall` runs from before the match (and a mesh run's layout) to after
+    the output."""
     m = dict(metrics, phase_s={k: round(v, 3)
                                for k, v in metrics["phase_s"].items()})
     m.update({"wall_s": round(wall, 3), "num_reads": num_reads,

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+from typing import Optional
 
 
 @dataclasses.dataclass
@@ -72,6 +73,11 @@ class RealConfig:
                                  # each rank builds the index shards it
                                  # owns and loads the others' from this
                                  # shared directory (parallel/multihost.py)
+    # index shards across the ranks of a multi-process job
+    # (parallel/mesh.py; the runner's -mesh). real_tpu resolves None to
+    # "more than one local device"; a port process drives one device, so
+    # None means False here. True without a process group raises.
+    use_mesh: Optional[bool] = None
     device: str = "cuda"         # -device cuda|cpu
     # -native 0: the host phases (parsing, row packing, hit sort, record
     # formatting) take their plain NumPy versions, not native/readpack.cpp
@@ -94,6 +100,11 @@ class RealConfig:
                   file=sys.stderr)
         if self.seedl < 4:
             raise ValueError("cannot handle seed length < 4")
+        if self.use_mesh and self.build_exchange_dir:
+            # real_tpu ignores the exchange on its mesh path; the port
+            # raises where real_tpu falls back
+            raise ValueError("-mesh and -exchange exclude each other: a "
+                             "mesh rank builds only its own shard")
         if self.seedkmax > 2:
             self.seedkmax = 2
             print(f"reduced number of mismatches in seed to {self.seedkmax} "

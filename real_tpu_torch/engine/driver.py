@@ -1,4 +1,5 @@
-"""End-to-end matchUnique and matchAll drivers on one device.
+"""End-to-end matchUnique and matchAll drivers, on one device or as one
+rank of a mesh.
 
 Counterpart of real_tpu/engine/driver.py (run_match_unique and
 run_match_all on their sequential single-device path). Loop structure
@@ -31,8 +32,11 @@ a later run skips them (engine/checkpoint.py); every blocking device fetch
 sits under the watchdog (utils/watchdog.py). In a multi-process run each
 process matches its own read slice (parallel/multihost.py); with -exchange
 the ranks split the index build between them and load each other's
-shards. Index shards spread across several devices wait for a later slice
-of the port.
+shards. In a mesh run (cfg.use_mesh, parallel/mesh.py) the ranks form a
+dp x shard grid: plan_mesh lays the run out once, each dp row matches one
+read slice, and in each pass ("unit") every rank of a row builds its own
+shard and the row gathers and folds its survivors shard-major after every
+step (_foreach_shard_mesh).
 
 Entry points run on the card: `device` defaults to "cuda" and raises
 without CUDA; only an explicit device="cpu" runs on the CPU.
@@ -43,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -50,6 +55,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from real_tpu_torch import native
 from real_tpu_torch.config import RealConfig
@@ -59,7 +65,9 @@ from real_tpu_torch.engine.matchstep import (CompactHits, MatchState,
 from real_tpu_torch.index.build import (SignatureIndex, build_index,
                                         pick_bucket_bits, shard_windows)
 from real_tpu_torch.io import fasta, pipeline, reads as reads_io
+from real_tpu_torch.parallel import mesh as mesh_mod
 from real_tpu_torch.parallel import plan
+from real_tpu_torch.parallel.mesh import sharded_match_step
 from real_tpu_torch.scoring.scoring import Scoring, score_tables
 from real_tpu_torch.text.packed import PackedText, build_packed_text
 from real_tpu_torch.utils.watchdog import watchdog
@@ -311,14 +319,18 @@ def _make_source(cfg: RealConfig, rs: reads_io.ReadSet,
     across shard passes) when the packed reads fit the budget, else the
     streaming pipeline (io/pipeline.py). Overflow reruns use 512-row
     batches."""
-    budget = cfg.resident_reads_bytes
-    if budget <= 0:
-        budget = int(RESIDENT_READS_SHARE * plan.hbm_bytes_per_device(dev))
     return pipeline.make_source(
         rs, cfg.batch_size, cfg.seedl, dev, patid_filter,
         warn=lambda m: print(m, file=sys.stderr),
-        resident_budget_bytes=budget, max_rows=512 if depth else 0,
-        use_native=cfg.native_host)
+        resident_budget_bytes=_resident_budget(cfg, dev),
+        max_rows=512 if depth else 0, use_native=cfg.native_host)
+
+
+def _resident_budget(cfg: RealConfig, dev: torch.device) -> int:
+    """Packed read bytes the batch source may keep on the device."""
+    if cfg.resident_reads_bytes > 0:
+        return cfg.resident_reads_bytes
+    return int(RESIDENT_READS_SHARE * plan.hbm_bytes_per_device(dev))
 
 
 def _record_event(dev: torch.device) -> Optional["torch.cuda.Event"]:
@@ -457,6 +469,138 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
     return account
 
 
+@dataclasses.dataclass
+class MeshPlan:
+    """A mesh run's layout, agreed by every rank before the run
+    (plan_mesh): this rank's Mesh, its row's read slice [lo, hi) of the
+    whole read set, the whole set's read count (the bucket-width hint, so
+    that every shard and every row builds the same table width), and rank
+    0's shard plan of each usable text with the bytes it reserved. The
+    overflow reruns keep it: they run no collective over the whole job."""
+    mesh: mesh_mod.Mesh
+    lo: int
+    hi: int
+    num_reads: int
+    plans: Dict[int, plan.StreamShardPlan]
+    reserved_bytes: int
+
+
+def plan_mesh(cfg: RealConfig, rs: reads_io.ReadSet,
+              texts: List[TextFile], device="cuda") -> MeshPlan:
+    """Lay out a mesh run of the whole read set `rs`; every rank of the
+    job calls this with the same arguments, and then matches
+    rs.records(lo, hi).
+
+    The plan, the slice and the mesh shape depend on one another (the
+    planner's budget needs the resident read bytes, those the slice, the
+    slice n_dp, and n_dp the shard count). So rank 0 plans every text
+    against the WHOLE set's packed bytes, which bound every slice's, and
+    broadcasts its plans; every rank then takes the mesh shape
+    (multihost.dp_shard_axes over its node's ranks), joins its shard row
+    and takes its row's slice (multihost.host_read_slice). One mesh serves
+    every text, its shard axis chosen for the text with the most shards;
+    a text with fewer runs as more, narrower shards. Without a process
+    group this raises."""
+    cfg.validate()
+    dev = _check_run(cfg, texts, device)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("use_mesh needs an initialized process group "
+                           "(parallel/multihost.initialize)")
+    from real_tpu_torch.parallel import multihost
+    topo = multihost.current_topology()
+    batches = pipeline.make_plans(rs, cfg.batch_size, cfg.seedl)
+    read_bytes = sum(pipeline.packed_batch_bytes(
+        p.rows, p.patl, rs.quals_flat is not None) for p in batches)
+    resident = read_bytes <= _resident_budget(cfg, dev)
+    usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
+              if _text_usable(cfg, tf)]
+    reserved = (sum(_text_bytes(t) for _, t in usable)
+                + (read_bytes if resident else 0)
+                + _step_workspace_bytes(batches, cfg.survivor_cap))
+    box = [None]
+    if topo.process_index == 0:
+        box[0] = {fi: _plan_shards(cfg, text, dev, reserved_bytes=reserved,
+                                   streaming=not resident,
+                                   reads=rs.num_reads)
+                  for fi, text in usable}
+    dist.broadcast_object_list(box, src=0)
+    shard_plans = box[0]
+    n_local = multihost.local_rank_count(topo)
+    if topo.process_count % n_local:
+        raise ValueError(f"{topo.process_count} ranks are not whole nodes "
+                         f"of {n_local}")
+    n_dp, n_shard = multihost.dp_shard_axes(
+        n_local, topo.process_count // n_local,
+        max((p.shards for p in shard_plans.values()), default=1))
+    mesh = mesh_mod.make_mesh(n_dp, n_shard)
+    lo, hi = multihost.host_read_slice(
+        rs.num_reads, multihost.HostTopology(mesh.dp, n_dp))
+    return MeshPlan(mesh, lo, hi, rs.num_reads, shard_plans, reserved)
+
+
+def _foreach_shard_mesh(cfg: RealConfig, texts: List[TextFile],
+                        cand_cap: int, visit, prog: _Progress, mp: MeshPlan,
+                        *, skip_units: int = 0) -> Dict[str, object]:
+    """The mesh's outer loop (real_tpu/engine/driver.py
+    _foreach_shard_mesh): each text's plan of `shards` runs as
+    rounds = ceil(shards / n_shard) passes of n_shard shards of
+    per_shard = round16(ceil(windows / (rounds * n_shard))) windows, one
+    bucket width for every shard; a pass that would start at or past the
+    last window is skipped. A pass is a unit: this rank builds its own
+    shard of it and calls visit(fi, text, index, bsearch_steps), whose
+    steps gather over the row. In flight and serial builds as in
+    _foreach_shard_seq. Returns the loop's account, with the mesh and the
+    gathers run, and adds their seconds to the `mesh_gather` phase."""
+    mesh = mp.mesh
+    passes = []
+    for fi, tf in enumerate(texts):
+        splan = mp.plans.get(fi)
+        if splan is None:
+            continue
+        nw = tf.packed.n - cfg.seedl + 1
+        rounds = -(-splan.shards // mesh.n_shard)
+        per_shard = shard_windows(nw, rounds * mesh.n_shard)
+        bbits = pick_bucket_bits(cfg.seedl, per_shard, mp.num_reads,
+                                 cap=splan.bucket_bits_cap)
+        passes += [(fi, tf.packed, r, rounds, per_shard, bbits,
+                    splan.serial_build) for r in range(rounds)
+                   if r * mesh.n_shard * per_shard < nw]
+    account = {"units": len(passes), "units_skipped": 0,
+               "units_dispatched": 0, "reserved_bytes": mp.reserved_bytes,
+               "plans": [dataclasses.asdict(sp) for sp in mp.plans.values()],
+               "mesh": {"n_dp": mesh.n_dp, "n_shard": mesh.n_shard,
+                        "dp": mesh.dp, "shard": mesh.shard}}
+    gather_s, gathers = mesh.gather_s, mesh.gathers
+    inflight: List = []
+    index = None
+    for unit, (fi, text, r, rounds, per_shard, bbits, serial) in \
+            enumerate(passes, 1):
+        if unit <= skip_units:
+            account["units_skipped"] += 1
+            continue
+        while len(inflight) >= (1 if serial else 2):
+            _wait_event(cfg, inflight.pop(0), "index unit in flight")
+        if serial:
+            index = None
+        with prog.phase("index_build"):
+            index = mesh_mod.build_sharded_index(
+                text, cfg.seedl, r * mesh.n_shard * per_shard, per_shard,
+                mesh, bbits)
+        steps = _bsearch_steps_static(per_shard, cand_cap, bbits)
+        prog.event(f"file {fi}: index pass {r + 1}/{rounds} dispatched "
+                   f"(shard {mesh.shard} of {mesh.n_shard} x {per_shard} "
+                   f"windows, bsearch={steps}, bbits={bbits})")
+        with prog.phase("match"):
+            handle = visit(fi, text, index, steps)
+        account["units_dispatched"] += 1
+        if handle is not None:
+            inflight.append(handle)
+    prog.phase_s["mesh_gather"] = (prog.phase_s.get("mesh_gather", 0.0)
+                                   + mesh.gather_s - gather_s)
+    account["mesh_gathers"] = mesh.gathers - gathers
+    return account
+
+
 def _loop_metrics(account: Dict[str, object],
                   source: pipeline.BatchSource) -> Dict[str, object]:
     """What the unit loop and the batch source did, for the result's
@@ -514,10 +658,15 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
                      patid_filter: Optional[np.ndarray] = None,
                      cand_cap: Optional[int] = None,
                      survivor_cap: Optional[int] = None,
+                     mesh_plan: Optional[MeshPlan] = None,
                      _depth: int = 0,
                      _index_cache: Optional[Dict] = None) -> MatchResult:
-    """matchUnique over all texts; `texts` must live on `device`."""
+    """matchUnique over all texts; `texts` must live on `device`. In a
+    mesh run (cfg.use_mesh) `rs` is this rank's row slice and mesh_plan
+    its layout (plan_mesh); the per-step -debug scan is the one-device
+    path's, a mesh run checks the finished result."""
     dev = _check_run(cfg, texts, device)
+    mesh = _mesh_of(cfg, mesh_plan)
     if _index_cache is None:
         _index_cache = {}
     cand_cap = cand_cap or cfg.cand_cap
@@ -546,9 +695,10 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
     skip_units = 0
     unit_done = [0]
     if cfg.checkpoint and _depth == 0 and patid_filter is None:
-        ck = ckpt_mod.Checkpoint(cfg.checkpoint, ckpt_mod.fingerprint(
+        ck = ckpt_mod.Checkpoint(cfg.checkpoint, _mesh_tag(mesh_plan)
+                                 + ckpt_mod.fingerprint(
             cfg, texts, numpat, len(plans), cand_cap, survivor_cap))
-        data = ck.load()
+        data = _load_checkpoint(ck, mesh)
         if data:
             skip_units = unit_done[0] = data["units_done"]
             for bi in range(len(plans)):
@@ -581,26 +731,35 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
 
     def visit(fi, text, index, steps):
         for bi, b in enumerate(source):
-            states[bi], surv = match_step(
-                index.sig, index.pos, index.bb,
-                text.words, text.nbits, text.ncum, text.frag_offsets,
-                b.codes, b.quals, b.valid,
-                states[bi], fi, np.float32(cfg.filter_value(b.patl)),
-                bsearch_steps=steps, text_has_n=text.has_n, **kw)
-            overflow_dev[bi] |= surv.overflow
-            if cfg.debug_checks and cfg.scores:
-                _check_step_scores(surv, f"file {fi}, batch {bi}")
+            args = (index.sig, index.pos, index.bb,
+                    text.words, text.nbits, text.ncum, text.frag_offsets,
+                    b.codes, b.quals, b.valid,
+                    states[bi], fi, np.float32(cfg.filter_value(b.patl)))
+            step_kw = dict(bsearch_steps=steps, text_has_n=text.has_n, **kw)
+            if mesh is None:
+                states[bi], surv = match_step(*args, **step_kw)
+                over = surv.overflow
+                if cfg.debug_checks and cfg.scores:
+                    _check_step_scores(surv, f"file {fi}, batch {bi}")
+            else:
+                states[bi], over = sharded_match_step(*args, mesh=mesh,
+                                                      **step_kw)
+            overflow_dev[bi] |= over
             win.push()
         checkpoint_unit()
         return _record_event(dev)
 
-    account = _foreach_shard_seq(
-        cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
-        index_cache=_index_cache, reads=numpat,
-        extra_reserved=source.resident_device_bytes
-        + _step_workspace_bytes(plans, survivor_cap),
-        streaming=not source.resident,
-        exchange=_make_exchange(cfg, _depth, dev))
+    if mesh is not None:
+        account = _foreach_shard_mesh(cfg, texts, cand_cap, visit, prog,
+                                      mesh_plan, skip_units=skip_units)
+    else:
+        account = _foreach_shard_seq(
+            cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
+            index_cache=_index_cache, reads=numpat,
+            extra_reserved=source.resident_device_bytes
+            + _step_workspace_bytes(plans, survivor_cap),
+            streaming=not source.resident,
+            exchange=_make_exchange(cfg, _depth, dev))
 
     # the match loop only dispatches; its device work completes here
     with prog.phase("drain"):
@@ -632,7 +791,8 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
         sub = run_match_unique(
             cfg, rs, texts, device=dev, patid_filter=over_ids,
             cand_cap=cand_cap * 16, survivor_cap=survivor_cap * 16,
-            _depth=_depth + 1, _index_cache=_index_cache)
+            mesh_plan=mesh_plan, _depth=_depth + 1,
+            _index_cache=_index_cache)
         for f in ("st", "pos", "frag", "fileid", "errs", "score"):
             getattr(result, f)[over_ids] = getattr(sub, f)[over_ids]
         _add_rerun_phases(result.metrics["phase_s"], sub.metrics["phase_s"])
@@ -642,6 +802,38 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
     if cfg.debug_checks and _depth == 0:
         validate_result(cfg, result, texts)
     return result
+
+
+def _mesh_of(cfg: RealConfig,
+             mesh_plan: Optional[MeshPlan]) -> Optional[mesh_mod.Mesh]:
+    """The run's Mesh, or None for a run of one device; use_mesh without
+    a layout raises (a run of one rank's slice on one device would print
+    a part of the records as if it were all of them)."""
+    if mesh_plan is None and cfg.use_mesh:
+        raise RuntimeError("use_mesh: pass the run's layout from "
+                           "driver.plan_mesh (every rank of the job calls "
+                           "it) as mesh_plan")
+    return mesh_plan.mesh if mesh_plan is not None else None
+
+
+def _mesh_tag(mesh_plan: Optional[MeshPlan]) -> str:
+    """A mesh run's checkpoint belongs to its grid and pass layout."""
+    if mesh_plan is None:
+        return ""
+    m = mesh_plan.mesh
+    return (f"mesh{m.n_dp}x{m.n_shard}.{m.dp}.{m.shard}:"
+            f"{sorted((fi, p.shards) for fi, p in mesh_plan.plans.items())}"
+            "-")
+
+
+def _load_checkpoint(ck, mesh: Optional[mesh_mod.Mesh]):
+    """The checkpoint's data, or None; in a mesh run only when every rank
+    of the row holds the same unit count (mesh.agree_resume)."""
+    data = ck.load()
+    if mesh is not None and not mesh_mod.agree_resume(
+            mesh, data["units_done"] if data else 0):
+        return None
+    return data
 
 
 def _make_exchange(cfg: RealConfig, depth: int, dev: torch.device):
@@ -895,6 +1087,7 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
                   cand_cap: Optional[int] = None,
                   survivor_cap: Optional[int] = None,
                   as_arrays: bool = False,
+                  mesh_plan: Optional[MeshPlan] = None,
                   _depth: int = 0,
                   _index_cache: Optional[Dict] = None):
     """Every qualifying hit per read; `texts` must live on `device`.
@@ -909,8 +1102,10 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     the copies overlap device work and device memory stays bounded. Reads
     that overflow a cap, or whose batch overflows the hit buffer, are
     rerun with 16x caps; their first-pass hits are dropped before the
-    rerun's are merged."""
+    rerun's are merged. A mesh run takes `rs` and `mesh_plan` as
+    run_match_unique does; every rank of a row holds the row's hits."""
     dev = _check_run(cfg, texts, device)
+    mesh = _mesh_of(cfg, mesh_plan)
     if _index_cache is None:
         _index_cache = {}
     cand_cap = cand_cap or cfg.cand_cap
@@ -938,10 +1133,11 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     unit_done = [0]
     if cfg.checkpoint and _depth == 0 and patid_filter is None:
         ck = ckpt_mod.AllCheckpoint(
-            cfg.checkpoint, "all-" + ckpt_mod.fingerprint(
-                cfg, texts, rs.num_reads, len(source.plans), cand_cap,
-                survivor_cap))
-        data = ck.load()
+            cfg.checkpoint, "all-" + _mesh_tag(mesh_plan)
+            + ckpt_mod.fingerprint(cfg, texts, rs.num_reads,
+                                   len(source.plans), cand_cap,
+                                   survivor_cap))
+        data = _load_checkpoint(ck, mesh)
         if data:
             skip_units = unit_done[0] = data["units_done"]
             overflow |= data["overflow"]
@@ -958,9 +1154,12 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
 
     win = _DispatchWindow(cfg, dev, enabled=not source.resident)
 
+    step = (match_step if mesh is None
+            else functools.partial(sharded_match_step, mesh=mesh))
+
     def visit(fi, text, index, steps):
         for bi, b in enumerate(source):
-            _, ch = match_step(
+            _, ch = step(
                 index.sig, index.pos, index.bb,
                 text.words, text.nbits, text.ncum, text.frag_offsets,
                 b.codes, b.quals, b.valid,
@@ -977,13 +1176,17 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
         checkpoint_unit()
         return _record_event(dev)
 
-    account = _foreach_shard_seq(
-        cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
-        index_cache=_index_cache, reads=rs.num_reads,
-        extra_reserved=source.resident_device_bytes
-        + _step_workspace_bytes(source.plans, survivor_cap),
-        streaming=not source.resident,
-        exchange=_make_exchange(cfg, _depth, dev))
+    if mesh is not None:
+        account = _foreach_shard_mesh(cfg, texts, cand_cap, visit, prog,
+                                      mesh_plan, skip_units=skip_units)
+    else:
+        account = _foreach_shard_seq(
+            cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
+            index_cache=_index_cache, reads=rs.num_reads,
+            extra_reserved=source.resident_device_bytes
+            + _step_workspace_bytes(source.plans, survivor_cap),
+            streaming=not source.resident,
+            exchange=_make_exchange(cfg, _depth, dev))
 
     with prog.phase("drain"):
         drain(0)
@@ -1005,7 +1208,8 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
         sub = run_match_all(
             cfg, rs, texts, device=dev, patid_filter=over_ids,
             cand_cap=cand_cap * 16, survivor_cap=survivor_cap * 16,
-            as_arrays=True, _depth=_depth + 1, _index_cache=_index_cache)
+            as_arrays=True, mesh_plan=mesh_plan, _depth=_depth + 1,
+            _index_cache=_index_cache)
         keep = ~np.isin(cols[0], over_ids)
         cols = _sort_dedup_hits(tuple(
             np.concatenate([a[keep], b]) for a, b in zip(cols, sub.cols)),

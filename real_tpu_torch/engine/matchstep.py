@@ -502,22 +502,19 @@ def compact_hits(surv: Survivors, cap: int) -> CompactHits:
 # full step
 # ---------------------------------------------------------------------------
 
-def match_step(index_sig, index_pos, index_bb,
-               words, nbits, ncum, frag_offsets,
-               codes, quals, read_valid,
-               state: MatchState, fileid: int, epsilon: float,
-               *, tables: ScoreTables = None, seedl: int, seedkmax: int,
-               totalkmax: int, cand_cap: int, survivor_cap: int,
-               scores: bool, matchall: bool = False, bsearch_steps: int = 0,
-               text_has_n: bool = True):
-    """One (read batch x index shard) step. Returns (new_state,
-    survivors) for matchUnique and (state, CompactHits) for matchAll
-    (matchall=True skips the automaton, and `state` may be None: the hits
-    go to the host for dedup and printing,
-    matchAllImplementation.cpp:99-185). quals=None
+def scored_survivors(index_sig, index_pos, index_bb,
+                     words, nbits, ncum, frag_offsets,
+                     codes, quals, read_valid,
+                     *, tables: ScoreTables = None, seedl: int,
+                     seedkmax: int, totalkmax: int, cand_cap: int,
+                     survivor_cap: int, scores: bool,
+                     bsearch_steps: int = 0,
+                     text_has_n: bool = True) -> Survivors:
+    """The scored survivors of one (read batch x index shard): find, then
+    score (real_tpu/engine/matchstep.py scored_survivors). quals=None
     means FASTA constant quality 30 (Pattern.hpp:42-45); `tables` is None
     when scores=False. Reads whose candidates exceed the caps are flagged
-    in the overflow mask for the driver's rerun."""
+    in Survivors.overflow for the driver's rerun."""
     if quals is None:
         quals = torch.full(codes.shape, 30, dtype=torch.int8,
                            device=codes.device)
@@ -530,6 +527,28 @@ def match_step(index_sig, index_pos, index_bb,
         bsearch_steps=bsearch_steps, text_has_n=text_has_n)
     if scores:
         surv = score_survivors(surv, tw, codes, quals, tables)
+    return surv
+
+
+def match_step(index_sig, index_pos, index_bb,
+               words, nbits, ncum, frag_offsets,
+               codes, quals, read_valid,
+               state: MatchState, fileid: int, epsilon: float,
+               *, tables: ScoreTables = None, seedl: int, seedkmax: int,
+               totalkmax: int, cand_cap: int, survivor_cap: int,
+               scores: bool, matchall: bool = False, bsearch_steps: int = 0,
+               text_has_n: bool = True):
+    """One (read batch x index shard) step: scored_survivors, then the
+    automaton. Returns (new_state, survivors) for matchUnique and (state,
+    CompactHits) for matchAll (matchall=True skips the automaton, and
+    `state` may be None: the hits go to the host for dedup and printing,
+    matchAllImplementation.cpp:99-185)."""
+    surv = scored_survivors(
+        index_sig, index_pos, index_bb, words, nbits, ncum, frag_offsets,
+        codes, quals, read_valid, tables=tables, seedl=seedl,
+        seedkmax=seedkmax, totalkmax=totalkmax, cand_cap=cand_cap,
+        survivor_cap=survivor_cap, scores=scores,
+        bsearch_steps=bsearch_steps, text_has_n=text_has_n)
     if matchall:
         # hit capacity scales with the survivor cap: escalated reruns on
         # repeat-rich genomes legitimately return hundreds of hits per read

@@ -78,6 +78,23 @@ class ReadSet:
     def num_reads(self) -> int:
         return len(self.ids)
 
+    def records(self, lo: int, hi: int) -> "ReadSet":
+        """Reads [lo, hi) as a read set of their own (patids 0..hi-lo),
+        sharing this one's buffers: what parse_reads_sliced parses for
+        that record range."""
+        a, b = int(self.offsets[lo]), int(self.offsets[hi])
+        if isinstance(self.ids, IdView):
+            off = self.ids.off
+            ids = IdView(self.ids.blob[off[lo]:off[hi]],
+                         off[lo:hi + 1] - off[lo])
+        else:
+            ids = list(self.ids[lo:hi])
+        return ReadSet(ids, self.lengths[lo:hi], self.codes_flat[a:b],
+                       self.offsets[lo:hi + 1] - a,
+                       None if self.quals_flat is None
+                       else self.quals_flat[a:b],
+                       self.fastq, self.quality_offset)
+
     def length_buckets(self) -> Dict[int, np.ndarray]:
         """patids grouped by read length (ascending patid within bucket)."""
         buckets: Dict[int, np.ndarray] = {}

@@ -390,6 +390,14 @@ probe_candidates.launches_wide = 0
 verify_windows.launches = 0
 
 
+def launch_counts() -> dict:
+    """The launch counts of the three entry points since the last reset."""
+    return {"probe_candidates": probe_candidates.launches,
+            "probe_candidates_wide": probe_candidates.launches_wide,
+            "verify_windows": verify_windows.launches,
+            "gather_word_windows": gather_word_windows.launches}
+
+
 def reset_launch_counts() -> None:
     gather_word_windows.launches = 0
     gather_word_windows.launches_by_w = {}

@@ -22,10 +22,19 @@ there are cards enough and several on one card past that:
   rank; every rank takes rank 0's shard plan, builds only its own shards
   and loads the others' from a shared directory, so the build is 1/P per
   process.
+* -mesh: the ranks form a dp x shard grid instead (parallel/mesh.py,
+  engine/driver.py plan_mesh): every rank parses the whole read file, the
+  grid's shape comes from rank 0's shard plan (`dp_shard_axes` over the
+  node's ranks, so that a shard row stays on one node), each dp row
+  matches its slice (`host_read_slice`), and each rank of a row holds one
+  index shard of each pass. The row's shard-0 rank writes the row's
+  records and the others an empty file, so the rank-order concatenation
+  is again the one-process file. -mesh with -exchange raises.
 
 `python -m real_tpu_torch.parallel.multihost` runs one rank of such a job
-through the CLI (`main`). tests/test_torch_multihost.py spawns real
-processes and holds the concatenation equal to the one-process file.
+through the CLI (`main`). tests/test_torch_multihost.py and
+tests/test_torch_mesh_ranks.py spawn real processes and hold the
+concatenation equal to the one-process file.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import datetime
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +101,33 @@ def rank_device(device: str, topo: HostTopology, device_count: int,
     env = os.environ if env is None else env
     local = int(env.get("LOCAL_RANK", topo.process_index))
     return f"cuda:{local % max(device_count, 1)}"
+
+
+def local_rank_count(topo: HostTopology, env=None) -> int:
+    """Ranks on this rank's node, the port's "local devices" of a node:
+    LOCAL_WORLD_SIZE under torchrun (which numbers a node's ranks
+    contiguously), else the whole job (one node)."""
+    env = os.environ if env is None else env
+    return int(env.get("LOCAL_WORLD_SIZE", topo.process_count))
+
+
+def host_read_slice(num_reads: int, topo: HostTopology) -> Tuple[int, int]:
+    """[lo, hi) patid range that process (or dp row) `topo` matches:
+    contiguous slices keep the output a simple concatenation, and every
+    slice but the last holds a multiple of 16 reads."""
+    from real_tpu_torch.io.reads import split_records
+    return split_records(num_reads, topo.process_index, topo.process_count)
+
+
+def dp_shard_axes(n_local_devices: int, n_processes: int,
+                  total_index_shards: int) -> Tuple[int, int]:
+    """(n_dp, n_shard) of a job of n_processes nodes of n_local_devices
+    each: the shard axis never crosses a node (its all-gathers stay
+    inside one), and dp takes the rest (local dp x nodes)."""
+    from real_tpu_torch.parallel.plan import choose_mesh_shape
+    local_dp, n_shard = choose_mesh_shape(n_local_devices,
+                                          total_index_shards)
+    return local_dp * n_processes, n_shard
 
 
 def parse_host_slice(path: str, topo: HostTopology,
@@ -184,7 +220,8 @@ class BuildExchange:
 
 
 USAGE = ("usage: python -m real_tpu_torch.parallel.multihost "
-         "[-init_method URL -world N -rank R] <real_tpu_torch CLI flags>")
+         "[-init_method URL -world N -rank R] [-mesh] "
+         "<real_tpu_torch CLI flags>")
 
 
 def _rank_path(path: str, topo: HostTopology) -> str:
@@ -198,7 +235,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     (-init_method / -world / -rank, or torchrun's environment), parse this
     rank's slice of -p, match it and write the records to `<-o>.<rank>`
     (and -metrics / -ckpt likewise per rank). `cat out.0 out.1 ...` is the
-    one-process output."""
+    one-process output. -mesh runs the ranks as a mesh (module doc); its
+    conflicts raise before the rank joins the job."""
     from real_tpu_torch.cli import main as cli
     from real_tpu_torch.engine import driver
     args = list(sys.argv[1:] if argv is None else argv)
@@ -208,10 +246,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             i = args.index(flag)
             job[flag] = args[i + 1]
             del args[i:i + 2]
+    use_mesh = "-mesh" in args
+    if use_mesh:
+        args.remove("-mesh")
     if not args:
         print(USAGE, file=sys.stderr)
         return 1
     cfg = cli.parse_args(args)
+    if use_mesh:
+        cfg.use_mesh = True
+        cfg.validate()                    # -mesh with -exchange raises
     driver.resolve_device(cfg.device)     # no card: raise before joining
     topo = initialize(job.get("-init_method"),
                       int(job["-world"]) if "-world" in job else None,
@@ -226,8 +270,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg.outputfilename = _rank_path(cfg.outputfilename, topo)
         cfg.metrics_json = _rank_path(cfg.metrics_json, topo)
         cfg.checkpoint = _rank_path(cfg.checkpoint, topo)
-        rs = parse_host_slice(cfg.patternfilename, topo, cfg.quality_offset,
-                              cfg.native_host)
+        if cfg.use_mesh:
+            # the whole file: the grid, and with it the row's slice, comes
+            # from a plan over every read (driver.plan_mesh)
+            from real_tpu_torch.io import reads as reads_io
+            rs = reads_io.parse_reads(cfg.patternfilename,
+                                      cfg.quality_offset, cfg.native_host)
+        else:
+            rs = parse_host_slice(cfg.patternfilename, topo,
+                                  cfg.quality_offset, cfg.native_host)
         return cli.run(cfg, rs, device)
     finally:
         if dist.is_initialized():

@@ -1,9 +1,10 @@
-"""The best-hit merge algebra behind the port's fold, held against the
-port's device fold: the legality argument for folding index shards that
-run on several devices (ROADMAP item 10d), kept here until that slice
-needs it at run time. The algebra is real_tpu's (real_tpu/engine/monoid.py,
-whose docstring carries the proofs); this file pins its three results on
-the port's side:
+"""The best-hit merge algebra behind the port's fold
+(real_tpu_torch/engine/monoid.py, the port's copy of
+real_tpu/engine/monoid.py, whose docstrings carry the proofs): the
+legality argument for folding index shards that run on several ranks
+(parallel/mesh.py). Every function of the port's module equals
+real_tpu's on random states and hits, and this file pins its three
+results on the port's side, against the port's device fold:
 
 * no-scores mode: merging independently folded shard states in shard
   order equals the sequential fold (an associative, left-biased monoid;
@@ -23,12 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from real_tpu.engine.monoid import (NON_UNIQUE, STRAIGHT, Hit, ScoreHit,
-                                    ScoreState, State, fold_hit,
-                                    fold_hit_scores, fold_hits, merge_states,
-                                    observable)
+from real_tpu.engine import monoid as j_monoid
 from real_tpu_torch.engine.matchstep import (MatchState, Survivors,
                                              fold_unique, initial_state)
+from real_tpu_torch.engine.monoid import (NON_UNIQUE, STRAIGHT, Hit,
+                                          ScoreHit, ScoreState, State,
+                                          fold_hit, fold_hit_scores,
+                                          fold_hits, merge_states,
+                                          observable)
 
 
 def random_hits(rng, n, npos=4, kmax=4, pos_base=0, scored=False):
@@ -42,6 +45,43 @@ def random_hits(rng, n, npos=4, kmax=4, pos_base=0, scored=False):
         out.append(ScoreHit(score=rng.randrange(-16, 17) / 8, **kw)
                    if scored else Hit(**kw))
     return out
+
+
+def _as_real_tpus(x):
+    """The same state or hit as real_tpu's dataclass."""
+    return getattr(j_monoid, type(x).__name__)(**vars(x))
+
+
+def random_state(rng, scored=False):
+    kw = dict(st=rng.randrange(5), pos=rng.randrange(4),
+              frag=rng.randrange(2), fileid=rng.randrange(2),
+              errs=rng.randrange(4))
+    return (ScoreState(score=rng.randrange(-16, 17) / 8, **kw) if scored
+            else State(**kw))
+
+
+def test_every_function_equals_real_tpus():
+    """fold_hit, fold_hit_scores, fold_hits, merge_states and observable
+    of the port's module give real_tpu's results on random inputs."""
+    rng = random.Random(3)
+    for _ in range(2000):
+        s, t = random_state(rng), random_state(rng)
+        h = random_hits(rng, 1)[0]
+        assert _as_real_tpus(fold_hit(s, h)) \
+            == j_monoid.fold_hit(_as_real_tpus(s), _as_real_tpus(h))
+        assert _as_real_tpus(merge_states(s, t)) == j_monoid.merge_states(
+            _as_real_tpus(s), _as_real_tpus(t))
+        assert observable(s) == j_monoid.observable(_as_real_tpus(s))
+        hs = random_hits(rng, rng.randrange(6))
+        assert _as_real_tpus(fold_hits(s, hs)) == j_monoid.fold_hits(
+            _as_real_tpus(s), [_as_real_tpus(h) for h in hs])
+        ss, sh = random_state(rng, True), random_hits(rng, 1, scored=True)[0]
+        eps = rng.choice((0.0, 0.25, 1.0))
+        assert _as_real_tpus(fold_hit_scores(ss, sh, eps)) \
+            == j_monoid.fold_hit_scores(_as_real_tpus(ss), _as_real_tpus(sh),
+                                        eps)
+    assert (j_monoid.NO_MATCH, j_monoid.STRAIGHT, j_monoid.NON_UNIQUE) \
+        == (0, STRAIGHT, NON_UNIQUE)
 
 
 def test_merge_equals_sequential_fold_over_random_splits():
