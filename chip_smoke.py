@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks N     # (i) and (j) alone, a card per rank
+    python3 chip_smoke.py --cells       # (k)'s runs of a cell per card alone
 
 Drives the port's four paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates in its 32-bit
@@ -35,11 +36,16 @@ the matchUnique genome split over two .fa files of one -t directory, in
 both modes, (i) the matchUnique path as two ranks sharing the card,
 with and without -exchange, and (j) index shards across ranks: the
 matchUnique, yeast matchAll, chr21 and chr21 -l 48 paths as mesh ranks
-sharing the card (python -m real_tpu_torch.parallel.multihost -mesh).
+sharing the card (python -m real_tpu_torch.parallel.multihost -mesh), and
+(k) the in-process mesh: the same paths as one process driving a grid of
+cells on the card (RealConfig.mesh_devices).
 
 With --ranks N it runs phases 1-2, the matchUnique data, phase (i) and the
 matchUnique -shards 2 mesh of (j) alone, as N ranks on N cards (one each;
-a 2 x 2 grid at N = 4); it needs N cards.
+a 2 x 2 grid at N = 4); it needs N cards. With --cells it runs phases 1-2,
+the matchUnique and chr21 paths on cuda:0 alone, then (k)'s runs of one
+cell per card and the CLI's default mesh of every card against them; it
+needs more than one card.
 
 Phases:
 
@@ -144,7 +150,25 @@ Phases:
                 probe_candidates (the 64-bit entry at -l 48) and
                 verify_windows (> 0), wall_s, phase seconds with
                 mesh_gather, and seconds from start to exit; beside the
-                first run, whether gloo's all_gather takes CUDA tensors
+                first run, whether gloo's all_gather takes CUDA tensors.
+                (k) the in-process mesh: the driver with
+                RealConfig.mesh_devices = ["cuda:0"] x n (one process, n
+                cells sharing the card, -f 0.75): matchUnique -shards 1 on
+                2 cells (2 x 1), -shards 2 on 4 (2 x 2), -shards 8 on 4
+                (1 x 4, two passes), yeast matchAll, chr21 and chr21 -l 48
+                -shards 2 on 2 cells (1 x 2); each run's records
+                byte-identical to its path's one-device records, launches
+                of probe_candidates (the 64-bit entry at -l 48) and
+                verify_windows (> 0) on every cell, every card's peak
+                under -f of it; wall_s, host ms per batch step,
+                mesh_gather and the gathers beside the path's one-device
+                run and (j)'s rank mesh of the grid; before them, no
+                call of a matchUnique step, a matchAll step or a mesh row
+                step may synchronize with the host (set_sync_debug_mode
+                "error"). With more than one
+                card also matchUnique -shards 4 and chr21 -shards 2 with
+                a cell per card, and the CLI with no device flag (the
+                default mesh of every card)
  11. gatherbench  the tool's JSON line at both table sizes; the kernel's
                 launches counted over each run
  12. times      each kernel at each main-path shape: kernel, plain version
@@ -614,12 +638,15 @@ def run_once(cfg, reads_path, device, caps=None):
     from real_tpu_torch.io import reads as reads_io
     import torch
     ph = {}
-    on_card = str(device) == "cuda"
+    on_card = torch.device(device).type == "cuda"
+    cards = range(torch.cuda.device_count()) if on_card else ()
     if on_card:
         gc.collect()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+        base = []
+        for c in cards:
+            torch.cuda.synchronize(c)
+            base.append(torch.cuda.memory_allocated(c))
+            torch.cuda.reset_peak_memory_stats(c)
     t0 = t = time.perf_counter()
     rs = reads_io.parse_reads(reads_path, use_native=cfg.native_host)
     ph["parse_reads"] = time.perf_counter() - t
@@ -634,9 +661,14 @@ def run_once(cfg, reads_path, device, caps=None):
         result = driver.run_match_all(cfg, rs, texts, device, cand_cap=caps,
                                       survivor_cap=caps, as_arrays=True)
     if on_card:
-        torch.cuda.synchronize()
-        # device bytes of this run at their peak, over what was live before
-        result.metrics["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        # device bytes of this run at their peak, over what was live
+        # before, on each card (peak_bytes: the first card's)
+        peaks = []
+        for c in cards:
+            torch.cuda.synchronize(c)
+            peaks.append(torch.cuda.max_memory_allocated(c) - base[c])
+        result.metrics["peak_bytes"] = peaks[0]
+        result.metrics["peak_bytes_by_card"] = peaks
     ph["match"] = time.perf_counter() - t
     t = time.perf_counter()
     buf = io.BytesIO()
@@ -664,6 +696,28 @@ def truth_share(pc: PathCfg, result, truth) -> float:
         ok = np.isin((np.arange(len(truth), dtype=np.int64) << 32) | tpos,
                      hit_keys)
     return float(ok[sel].mean())
+
+
+# per path: the one-device timed run's wall seconds (match and output),
+# match-phase (dispatch) seconds and batch steps, beside which phase (k)
+# prints its runs
+ONE_DEVICE = {}
+# per phase (j) run: the ranks' metrics, beside which phase (k) prints
+RANK_MESH = {}
+
+
+def _batch_steps(cfg, rs, m, row_align=1) -> int:
+    """Batch steps of a run: units dispatched x the batches of a pass."""
+    from real_tpu_torch.io import pipeline
+    return m["units_dispatched"] * len(pipeline.make_plans(
+        rs, cfg.batch_size, cfg.seedl, row_align=row_align))
+
+
+def _one_device(name, cfg, rs, result, ph) -> None:
+    m = result.metrics
+    ONE_DEVICE[name] = dict(wall_s=ph["match"] + ph["output"],
+                            match_s=m["phase_s"]["match"],
+                            steps=_batch_steps(cfg, rs, m))
 
 
 def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
@@ -694,6 +748,7 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
     log(f"{tag} launches: {launches}; gather_windows in the overflow "
         f"reruns, by w: {reruns}")
     log(f"{tag} {run_account(torch, m)}")
+    _one_device(pc.name, cfg, rs, result, ph)
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{pc.name} path made no {name} launch")
@@ -1023,6 +1078,7 @@ def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
             "probe_candidates": gather.probe_candidates.launches_wide,
             "verify_windows": gather.verify_windows.launches}
         share = truth_share(wpc, res, truth[:WIDE_READS])
+        _one_device(wpc.name, cfg, rs, res, ph)
         log(f"[chr21] (e) -l {seedl}: {WIDE_READS} reads in "
             f"{ph['total']:.3f}s ({records} records); match phases: "
             + " ".join(f"{k}={v:.3f}s" for k, v in
@@ -1358,6 +1414,7 @@ def mesh_run(torch, tag, pc: PathCfg, g, r, shards, world, want, tmp):
     log(f"[mesh] {tag}: {n_dp} x {n_shard} grid, {world} ranks on {cards} "
         f"card(s), concatenation byte-identical to the one process's "
         f"{records} records")
+    RANK_MESH[(pc.name, n_dp, n_shard)] = metrics
     return metrics
 
 
@@ -1370,6 +1427,176 @@ def mesh_phase(torch, runs, tmp):
         mesh_run(torch, tag, pc, g, r, shards, world, want, tmp)
         if i == 0:
             gloo_cuda_report(torch, probe)
+
+
+def local_mesh_run(torch, tag, pc: PathCfg, g, r, shards, cells, want):
+    """(k) one in-process mesh run through the driver's entry points, the
+    cells cfg.mesh_devices = `cells`, -shards `shards`: its records must be
+    `want` (the path's one-device bytes), every cell must launch both
+    fused entries (the 64-bit one for wide seeds) and every card's peak
+    must stay under -f of it. Prints wall_s, host ms per batch step,
+    mesh_gather and the gathers beside the path's one-device run and
+    phase (j)'s rank mesh of the same grid."""
+    from real_tpu_torch.parallel import plan
+    cfg = dataclasses.replace(path_config(pc, g, r), index_shards=shards,
+                              mesh_devices=list(cells))
+    n_dp, n_shard = plan.choose_mesh_shape(len(cells), shards)
+    rs, _, res, blob, records, ph = run_once(cfg, r, "cuda")
+    if blob != want:
+        raise AssertionError(f"(k) {tag}: records differ from the path's "
+                             "one-device records")
+    m = res.metrics
+    mesh = m["mesh"]
+    if mesh["grids"] != [[0, n_dp, n_shard]] \
+            or mesh["devices"] != [str(c) for c in cells]:
+        raise AssertionError(f"(k) {tag}: ran on {mesh}")
+    for c, k in enumerate(mesh["cell_launches"]):
+        if k["probe_candidates"] <= 0 or k["verify_windows"] <= 0 \
+                or (pc.seedl > 32) != (k["probe_candidates_wide"] > 0):
+            raise AssertionError(f"(k) {tag}: cell {c} did not launch the "
+                                 f"fused kernels ({k})")
+    for card, peak in enumerate(m["peak_bytes_by_card"]):
+        budget = cfg.fracmem * torch.cuda.mem_get_info(card)[1]
+        if peak > budget:
+            raise AssertionError(f"(k) {tag}: cuda:{card} peak {peak} B over "
+                                 f"-f {cfg.fracmem} = {budget:.0f} B")
+    steps = _batch_steps(cfg, rs, m, len(cells))
+    gathers = m["mesh_gathers"]
+    gather_s = m["phase_s"]["mesh_gather"]
+    wall = ph["match"] + ph["output"]
+    log(f"[localmesh] {tag}: {n_dp} x {n_shard} grid on "
+        f"{', '.join(mesh['devices'])}; {records} records byte-identical to "
+        f"the one-device run's; wall_s {wall:.3f} (match + output), units "
+        f"{m['units_dispatched']}, {steps} batch steps, host "
+        f"{m['phase_s']['match'] / max(steps, 1) * 1e3:.3f} ms per batch "
+        f"step, mesh_gather {gather_s:.4f}s over {gathers} gathers "
+        f"({gather_s / max(gathers, 1) * 1e3:.4f} ms each); peak by card "
+        f"{m['peak_bytes_by_card']} B; phase_s "
+        + " ".join(f"{k}={v:.3f}s" for k, v in m["phase_s"].items()))
+    log(f"[localmesh] {tag}: cell launches " + "; ".join(
+        f"{c}: probe_candidates {k['probe_candidates']} (64-bit "
+        f"{k['probe_candidates_wide']}), verify_windows "
+        f"{k['verify_windows']}, gather_word_windows "
+        f"{k['gather_word_windows']}" for c, k in
+        enumerate(mesh["cell_launches"])))
+    one = ONE_DEVICE.get(pc.name)
+    if one is not None:
+        log(f"[localmesh] {tag}: one-device run of the path: wall_s "
+            f"{one['wall_s']:.3f}, {one['steps']} batch steps, host "
+            f"{one['match_s'] / max(one['steps'], 1) * 1e3:.3f} ms per "
+            "batch step")
+    ranks = RANK_MESH.get((pc.name, n_dp, n_shard))
+    if ranks is not None:
+        log(f"[localmesh] {tag}: phase (j) rank mesh of the grid: wall_s "
+            f"{[x['wall_s'] for x in ranks]}, mesh_gather "
+            f"{[x['phase_s']['mesh_gather'] for x in ranks]} s over "
+            f"{[x['mesh_gathers'] for x in ranks]} gathers, match "
+            f"{[x['phase_s']['match'] for x in ranks]} s")
+    return m
+
+
+def cli_default_mesh(torch, pc: PathCfg, g, r, want, tmp):
+    """(k) on a machine of several cards: the CLI with no device flag
+    meshes every card, and prints the one-device bytes."""
+    cards = torch.cuda.device_count()
+    out = os.path.join(tmp, "cli_default.txt")
+    (wall,) = _subprocesses(
+        [[sys.executable, "-m", "real_tpu_torch.cli.main", "-t", g, "-p", r,
+          "-o", out, "-R", "0", "-B", str(pc.batch), "-e",
+          str(pc.totalkmax), "-metrics", out + ".json"]], "cli default", tmp)
+    with open(out, "rb") as f:
+        if f.read() != want:
+            raise AssertionError("(k) the CLI's default mesh printed other "
+                                 "records than one device")
+    with open(out + ".json") as f:
+        m = json.load(f)
+    mesh = m["mesh"]
+    if mesh["devices"] != [f"cuda:{i}" for i in range(cards)]:
+        raise AssertionError(f"(k) the CLI's default ran on {mesh}")
+    for c, k in enumerate(mesh["cell_launches"]):
+        if k["probe_candidates"] <= 0 or k["verify_windows"] <= 0:
+            raise AssertionError(f"(k) CLI default: cell {c} did not launch "
+                                 f"the fused kernels ({k})")
+    log(f"[localmesh] CLI with no device flag on {cards} cards: grids "
+        f"{mesh['grids']}, records byte-identical to one device's; "
+        f"{wall:.2f}s start to exit, wall_s {m['wall_s']}, mesh_gathers "
+        f"{m['mesh_gathers']}, phase_s {m['phase_s']}")
+
+
+def step_sync_check(torch, pc: PathCfg, g, r):
+    """(k) a match step never waits for the card: one matchUnique step, one
+    matchAll step and one row of a 1 x 2 in-process mesh on the path's
+    first batch, each run once and then again under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any call that
+    synchronizes with the host. Cells on separate cards overlap only if
+    their steps do not wait."""
+    import traceback
+    from real_tpu_torch.engine import driver, matchstep
+    from real_tpu_torch.index.build import shard_windows
+    from real_tpu_torch.io import pipeline, reads as reads_io
+    from real_tpu_torch.parallel import mesh
+    cfg = path_config(pc, g, r)
+    rs = reads_io.parse_reads(r)
+    text = driver.load_texts(cfg, "cuda")[0].packed
+    index = path_index(cfg, [driver.TextFile("t", text)], rs.num_reads)
+    b = next(iter(pipeline.make_source(rs, cfg.batch_size, cfg.seedl,
+                                       "cuda")))
+    kw = dict(driver._step_kwargs(cfg, cfg.cand_cap, cfg.survivor_cap),
+              text_has_n=text.has_n)
+    eps = cfg.filter_value(b.patl)
+    args = (index.sig, index.pos, index.bb, text.words, text.nbits,
+            text.ncum, text.frag_offsets, b.codes, b.quals, b.valid)
+    m = mesh.make_local_mesh(1, 2, ["cuda:0"] * 2)
+    reps = mesh.replicate_text(text, m.devices)
+    shards = mesh.build_local_shards(
+        reps, cfg.seedl, 0, shard_windows(text.n - cfg.seedl + 1, 2), m,
+        index.bucket_bits)
+    rows = b.codes.shape[0]
+    steps = {
+        "matchUnique step": lambda: matchstep.match_step(
+            *args, matchstep.initial_state(rows, "cuda"), 0, eps, **kw),
+        "matchAll step": lambda: matchstep.match_step(
+            *args, None, 0, eps, matchall=True, **kw),
+        "1 x 2 mesh row step": lambda: mesh.local_row_step(
+            m, 0, shards, reps, {torch.device("cuda:0"): b},
+            matchstep.initial_state(rows, "cuda"), 0, eps, **kw)}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            where = [f"{os.path.basename(f.filename)}:{f.lineno}" for f in
+                     traceback.extract_tb(e.__traceback__)
+                     if "real_tpu_torch" in f.filename]
+            raise AssertionError(f"(k) the {name} waits for the card at "
+                                 f"{' <- '.join(reversed(where))}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    log(f"[localmesh] {pc.name}: no call of a {', '.join(steps)} "
+        "synchronizes with the host (torch.cuda.set_sync_debug_mode)")
+
+
+def local_mesh_phase(torch, runs, multi, tmp):
+    """(k) the in-process mesh: the step check on the first run's path,
+    then each of `runs` = (tag, path, genome, reads, -shards, cells, the
+    path's one-device records) through local_mesh_run; with more than one
+    card also `multi` (the same, one cell per card, each run twice: a
+    warmup of the other cards, then the timed run) and the CLI's default
+    mesh of every card (the first of `multi`'s paths)."""
+    _, pc, g, r = (runs or multi)[0][:4]
+    step_sync_check(torch, pc, g, r)
+    for run in runs:
+        local_mesh_run(torch, *run)
+    if torch.cuda.device_count() > 1:
+        for run in multi:
+            # the first run on the other cards is their warmup
+            for _ in range(2):
+                local_mesh_run(torch, *run)
+        _, pc, g, r, _, _, want = multi[0]
+        cli_default_mesh(torch, pc, g, r, want, tmp)
 
 
 def gatherbench_phase(big_m):
@@ -1622,6 +1849,22 @@ def drive(torch, dev) -> list:
                 wide[0], num_reads=WIDE_READS), gc21, rc_wide, 2, 2,
              blobs_w[48]),
         ], tmp)
+        one = ["cuda:0"]
+        local_mesh_phase(torch, [
+            ("matchUnique -shards 1, 2 cells", unique, gu, ru, 1, one * 2,
+             blob_u),
+            ("matchUnique -shards 2, 4 cells", unique, gu, ru, 2, one * 4,
+             blob_u),
+            ("matchUnique -shards 8, 4 cells", unique, gu, ru, 8, one * 4,
+             blob_u),
+            ("yeast matchAll -shards 2, 2 cells", yeast, ga, ra, 2, one * 2,
+             blob_a),
+            ("chr21 -shards 2, 2 cells", chr21, gc21, rc, 2, one * 2, blob_c),
+            ("chr21 -l 48 -shards 2, 2 cells", dataclasses.replace(
+                wide[0], num_reads=WIDE_READS), gc21, rc_wide, 2, one * 2,
+             blobs_w[48]),
+        ], _card_cell_runs(torch, unique, gu, ru, blob_u, chr21, gc21, rc,
+                           blob_c), tmp)
         del blob_u, blob_a, blob_c, blobs_w
 
         rlaunches = gatherbench_phase(big_table.numel())
@@ -1630,6 +1873,43 @@ def drive(torch, dev) -> list:
             {unique.name: launches_u, yeast.name: launches_a,
              chr21.name: launches_c, **launches_w},
             rcases, rerrs, rlaunches)
+
+
+def _card_cell_runs(torch, unique, gu, ru, blob_u, chr21, gc21, rc, blob_c):
+    """(k)'s runs of one cell per card: matchUnique -shards 4 (1 x 4 on
+    four cards) and chr21 -shards 2 (2 x 2 on four)."""
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [("matchUnique -shards 4, a cell per card", unique, gu, ru, 4,
+             cards, blob_u),
+            ("chr21 -shards 2, a cell per card", chr21, gc21, rc, 2, cards,
+             blob_c)]
+
+
+def cells_only(torch) -> None:
+    """--cells: (k)'s runs of one cell per card and the CLI's default mesh
+    of every card, against one-device runs on cuda:0 of the matchUnique
+    and chr21 paths; it needs more than one card."""
+    if torch.cuda.device_count() < 2:
+        raise SystemExit("--cells needs more than one card, this machine "
+                         f"has {torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        blobs = {}
+        data = []
+        for pc in (UNIQUE, CHR21):
+            g, codes = make_genome(tmp, pc)
+            r = make_reads(tmp, pc, codes)[0]
+            cfg = path_config(pc, g, r)
+            for _ in range(2):            # a warmup, then the timed run
+                rs, _, res, blobs[pc.name], records, ph = run_once(
+                    cfg, r, "cuda:0")
+            _one_device(pc.name, cfg, rs, res, ph)
+            log(f"[localmesh] {pc.name} on cuda:0 alone: {records} records "
+                f"in {ph['total']:.3f}s")
+            data.append((g, r))
+        (gu, ru), (gc21, rc) = data
+        local_mesh_phase(torch, [], _card_cell_runs(
+            torch, UNIQUE, gu, ru, blobs[UNIQUE.name], CHR21, gc21, rc,
+            blobs[CHR21.name]), tmp)
 
 
 def ranks_only(torch, world: int) -> None:
@@ -1657,14 +1937,20 @@ def main() -> int:
     t_all = time.perf_counter()
     name, _ = card_phase(torch)
     build_phase()
-    if "--ranks" in sys.argv:
-        ranks_only(torch, int(sys.argv[sys.argv.index("--ranks") + 1]))
+    if "--ranks" in sys.argv or "--cells" in sys.argv:
+        if "--cells" in sys.argv:
+            cells_only(torch)
+        else:
+            ranks_only(torch, int(sys.argv[sys.argv.index("--ranks") + 1]))
         log(f"[done] {time.perf_counter() - t_all:.1f}s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return 0
-    kernels = drive(torch, "cuda")
+    # plain cuda meshes every card of a machine of several (phase (k)
+    # drives that mesh); the phases before it then pin the first card
+    kernels = drive(torch, "cuda" if torch.cuda.device_count() == 1
+                    else "cuda:0")
     log("kernels: gather_windows, probe_candidates (32-bit and 64-bit "
         "entries), verify_windows, gather_rowsum")
     log(f"[done] {time.perf_counter() - t_all:.1f}s")

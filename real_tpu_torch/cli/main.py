@@ -18,7 +18,10 @@ host phases through their plain NumPy versions instead of the C++ library
 (native/readpack.cpp), which is built at first use.
 
 Runs matchUnique (-u 1) and matchAll (-u 0) with seeds up to 64 bases on
-one device. -f bounds the share of the device's memory the index may
+one device, or, when the process sees more than one card and -device is
+the plain `cuda` (the default), on every card at once as a dp x shard
+grid of cells (the in-process mesh, parallel/mesh.py LocalMesh);
+-device cuda:K pins one card. -f bounds the share of the device's memory the index may
 fill: the planner (parallel/plan.py) splits a text's index into as many
 shards as that needs, and -shards N forces the count; reads beyond the
 resident budget are streamed once per shard. -ckpt saves the state after
@@ -36,7 +39,9 @@ a multi-process run (parallel/multihost.py, which also runs one rank of
 such a run); in a single process it changes nothing. The runner's -mesh
 (cfg.use_mesh) spreads the index shards over the ranks instead
 (parallel/mesh.py): its metrics add the rank's `mesh` coordinates and the
-`mesh_gather` phase. Every metrics file holds `kernel_launches`, the hand
+`mesh_gather` phase; the in-process mesh's add its `mesh` account (each
+text's grid, the cells' devices, each cell's kernel launches) and the same
+phase. Every metrics file holds `kernel_launches`, the hand
 kernels' launches in the run (ops/gather.py), which stay 0 on the CPU.
 """
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Optional
+from typing import List, Optional
 
 
 @dataclasses.dataclass
@@ -73,11 +73,19 @@ class RealConfig:
                                  # each rank builds the index shards it
                                  # owns and loads the others' from this
                                  # shared directory (parallel/multihost.py)
-    # index shards across the ranks of a multi-process job
-    # (parallel/mesh.py; the runner's -mesh). real_tpu resolves None to
-    # "more than one local device"; a port process drives one device, so
-    # None means False here. True without a process group raises.
+    # index shards over a dp x shard grid (parallel/mesh.py). None (the
+    # default, real_tpu's "more than one local device"): the in-process
+    # mesh of every card when the process is no rank of a job, `device` is
+    # the unqualified "cuda" and it sees more than one card, or of the
+    # cells in mesh_devices; else one device. True: the rank mesh of a
+    # multi-process job (the runner's -mesh; without a process group it
+    # raises). False: one device.
     use_mesh: Optional[bool] = None
+    # the in-process mesh's cells, one device string each ("cuda:0",
+    # "cpu"; a device may hold several cells); no CLI flag. The port's
+    # counterpart of the forced host-device count of real_tpu's tests:
+    # ["cpu"] * 8 runs 8 CPU cells, ["cuda:0"] * 4 four cells on one card.
+    mesh_devices: Optional[List[str]] = None
     device: str = "cuda"         # -device cuda|cpu
     # -native 0: the host phases (parsing, row packing, hit sort, record
     # formatting) take their plain NumPy versions, not native/readpack.cpp
@@ -100,6 +108,9 @@ class RealConfig:
                   file=sys.stderr)
         if self.seedl < 4:
             raise ValueError("cannot handle seed length < 4")
+        if self.mesh_devices and self.use_mesh is not None:
+            raise ValueError("mesh_devices names the cells of the "
+                             "in-process mesh, which use_mesh=None selects")
         if self.use_mesh and self.build_exchange_dir:
             # real_tpu ignores the exchange on its mesh path; the port
             # raises where real_tpu falls back

@@ -32,11 +32,16 @@ a later run skips them (engine/checkpoint.py); every blocking device fetch
 sits under the watchdog (utils/watchdog.py). In a multi-process run each
 process matches its own read slice (parallel/multihost.py); with -exchange
 the ranks split the index build between them and load each other's
-shards. In a mesh run (cfg.use_mesh, parallel/mesh.py) the ranks form a
-dp x shard grid: plan_mesh lays the run out once, each dp row matches one
-read slice, and in each pass ("unit") every rank of a row builds its own
-shard and the row gathers and folds its survivors shard-major after every
-step (_foreach_shard_mesh).
+shards. In a rank mesh run (cfg.use_mesh, parallel/mesh.py) the ranks
+form a dp x shard grid: plan_mesh lays the run out once, each dp row
+matches one read slice, and in each pass ("unit") every rank of a row
+builds its own shard and the row gathers and folds its survivors
+shard-major after every step (_foreach_shard_mesh). The in-process mesh
+(local_mesh_cells: real_tpu's default on a host of several devices) is
+the same grid of devices driven by one process: each text gets its own
+mesh, shaped by its shard plan (_local_layout), every batch is split over
+the dp rows, and each pass builds every cell's shard and folds each row's
+survivors on the row's home device (_foreach_shard_local).
 
 Entry points run on the card: `device` defaults to "cuda" and raises
 without CUDA; only an explicit device="cpu" runs on the CPU.
@@ -203,11 +208,13 @@ def _step_workspace_bytes(plans, survivor_cap: int) -> int:
 
 def _plan_shards(cfg: RealConfig, text: PackedText, dev: torch.device,
                  reserved_bytes: int = 0, streaming: bool = False,
-                 reads: int = 0) -> plan.StreamShardPlan:
+                 reads: int = 0, cells: int = 1) -> plan.StreamShardPlan:
     """-shards override or the -f fracmem memory planner. reserved_bytes
     must cover ALL device-resident texts (split oversized files keep every
     sub-text uploaded for the whole run), the resident reads and the match
-    step's workspace.
+    step's workspace. `cells` of an in-process mesh that share `dev` each
+    plan against 1/cells of its memory and of reserved_bytes
+    (plan.device_cells).
 
     The pass-minimizing serial-build plan (plan_index_shards_streaming)
     applies when passes are expensive relative to builds — always when
@@ -218,9 +225,9 @@ def _plan_shards(cfg: RealConfig, text: PackedText, dev: torch.device,
                                     serial_build=False,
                                     bucket_bits_cap=BUCKET_BITS_CAP)
     num_windows = max(text.n - cfg.seedl + 1, 0)
-    reserved = reserved_bytes or _text_bytes(text)
+    reserved = (reserved_bytes or _text_bytes(text)) // cells
     model = plan.model_for(cfg.seedl)
-    hbm = plan.hbm_bytes_per_device(dev)
+    hbm = plan.hbm_bytes_per_device(dev) // cells
     splan = plan.plan_index_shards_streaming(
         num_windows, cfg.fracmem, reserved_bytes=reserved, hbm_bytes=hbm,
         model=model)
@@ -314,37 +321,47 @@ def _step_kwargs(cfg: RealConfig, cand_cap: int, survivor_cap: int) -> dict:
 
 def _make_source(cfg: RealConfig, rs: reads_io.ReadSet,
                  patid_filter: Optional[np.ndarray], depth: int,
-                 dev: torch.device) -> pipeline.BatchSource:
+                 dev: torch.device,
+                 cells: Optional[List[torch.device]] = None
+                 ) -> pipeline.BatchSource:
     """Length-bucketed batch source: resident (one bulk upload, reused
     across shard passes) when the packed reads fit the budget, else the
     streaming pipeline (io/pipeline.py). Overflow reruns use 512-row
-    batches."""
+    batches. For an in-process mesh (`cells`) every batch's rows are
+    divisible by the cell count, so that any grid of the cells splits it
+    over its dp rows (BatchSource.rows)."""
     return pipeline.make_source(
-        rs, cfg.batch_size, cfg.seedl, dev, patid_filter,
+        rs, cfg.batch_size, cfg.seedl, None if cells else dev, patid_filter,
         warn=lambda m: print(m, file=sys.stderr),
-        resident_budget_bytes=_resident_budget(cfg, dev),
-        max_rows=512 if depth else 0, use_native=cfg.native_host)
+        resident_budget_bytes=_resident_budget(cfg, cells or [dev]),
+        max_rows=512 if depth else 0, use_native=cfg.native_host,
+        row_align=len(cells) if cells else 1)
 
 
-def _resident_budget(cfg: RealConfig, dev: torch.device) -> int:
-    """Packed read bytes the batch source may keep on the device."""
+def _resident_budget(cfg: RealConfig, devices) -> int:
+    """Packed read bytes the batch source may keep on each of `devices`
+    (the tightest of them)."""
     if cfg.resident_reads_bytes > 0:
         return cfg.resident_reads_bytes
-    return int(RESIDENT_READS_SHARE * plan.hbm_bytes_per_device(dev))
+    return min(int(RESIDENT_READS_SHARE * plan.hbm_bytes_per_device(d))
+               for d in dict.fromkeys(devices))
 
 
-def _record_event(dev: torch.device) -> Optional["torch.cuda.Event"]:
-    """An event after everything queued so far on the device's current
-    stream; None on the CPU, where every call has finished on return."""
-    if dev.type != "cuda":
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(dev))
-    return ev
+def _record_events(devices) -> List["torch.cuda.Event"]:
+    """An event after everything queued so far on the current stream of
+    each distinct CUDA device of `devices`; none on the CPU, where every
+    call has finished on return."""
+    out = []
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            out.append(ev)
+    return out
 
 
-def _wait_event(cfg: RealConfig, ev, what: str) -> None:
-    if ev is not None:
+def _wait_events(cfg: RealConfig, evs, what: str) -> None:
+    for ev in evs:
         with watchdog(cfg.watchdog_s, what):
             ev.synchronize()
 
@@ -357,19 +374,19 @@ class _DispatchWindow:
     event recorded `depth` batches ago keeps (depth + prefetch) batches
     alive at most while upload, compute and the host loop still overlap."""
 
-    def __init__(self, cfg: RealConfig, dev: torch.device, enabled: bool,
+    def __init__(self, cfg: RealConfig, devices, enabled: bool,
                  depth: int = 4):
-        self.cfg, self.dev = cfg, dev
-        self.enabled = enabled and dev.type == "cuda"
+        self.cfg, self.devices = cfg, list(devices)
+        self.enabled = enabled and any(d.type == "cuda" for d in devices)
         self.depth = depth
         self._window: List = []
 
     def push(self) -> None:
         if not self.enabled:
             return
-        self._window.append(_record_event(self.dev))
+        self._window.append(_record_events(self.devices))
         if len(self._window) > self.depth:
-            _wait_event(self.cfg, self._window.pop(0), "dispatch window")
+            _wait_events(self.cfg, self._window.pop(0), "dispatch window")
 
 
 def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
@@ -392,7 +409,7 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
 
     Every text is planned against ALL resident texts' bytes plus
     extra_reserved (resident reads, the step's workspace). visit returns
-    an event recorded after its last dispatch (None on the CPU); at most 2
+    the events recorded after its last dispatch (none on the CPU); at most 2
     units are kept in flight, and 1 under a serial_build plan, which also
     drops the previous unit's lists BEFORE the next build so that the peak
     is one build and not lists plus a build.
@@ -441,7 +458,7 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
                 continue
             depth = 1 if splan.serial_build else 2
             while len(inflight) >= depth:
-                _wait_event(cfg, inflight.pop(0), "index unit in flight")
+                _wait_events(cfg, inflight.pop(0), "index unit in flight")
             if splan.serial_build:
                 index = None
             ck = (fi, s, e, cfg.seedl)
@@ -511,7 +528,7 @@ def plan_mesh(cfg: RealConfig, rs: reads_io.ReadSet,
     batches = pipeline.make_plans(rs, cfg.batch_size, cfg.seedl)
     read_bytes = sum(pipeline.packed_batch_bytes(
         p.rows, p.patl, rs.quals_flat is not None) for p in batches)
-    resident = read_bytes <= _resident_budget(cfg, dev)
+    resident = read_bytes <= _resident_budget(cfg, [dev])
     usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
               if _text_usable(cfg, tf)]
     reserved = (sum(_text_bytes(t) for _, t in usable)
@@ -538,33 +555,38 @@ def plan_mesh(cfg: RealConfig, rs: reads_io.ReadSet,
     return MeshPlan(mesh, lo, hi, rs.num_reads, shard_plans, reserved)
 
 
-def _foreach_shard_mesh(cfg: RealConfig, texts: List[TextFile],
-                        cand_cap: int, visit, prog: _Progress, mp: MeshPlan,
-                        *, skip_units: int = 0) -> Dict[str, object]:
-    """The mesh's outer loop (real_tpu/engine/driver.py
-    _foreach_shard_mesh): each text's plan of `shards` runs as
+def _mesh_passes(cfg: RealConfig, text: PackedText,
+                 splan: plan.StreamShardPlan, n_shard: int, reads: int):
+    """A text's passes on a mesh of n_shard shards (real_tpu/engine/
+    driver.py _foreach_shard_mesh): its plan of `shards` runs as
     rounds = ceil(shards / n_shard) passes of n_shard shards of
     per_shard = round16(ceil(windows / (rounds * n_shard))) windows, one
     bucket width for every shard; a pass that would start at or past the
-    last window is skipped. A pass is a unit: this rank builds its own
+    last window is skipped. Returns (r, rounds, per_shard, bucket_bits,
+    serial_build) per pass."""
+    nw = text.n - cfg.seedl + 1
+    rounds = -(-splan.shards // n_shard)
+    per_shard = shard_windows(nw, rounds * n_shard)
+    bbits = pick_bucket_bits(cfg.seedl, per_shard, reads,
+                             cap=splan.bucket_bits_cap)
+    return [(r, rounds, per_shard, bbits, splan.serial_build)
+            for r in range(rounds) if r * n_shard * per_shard < nw]
+
+
+def _foreach_shard_mesh(cfg: RealConfig, texts: List[TextFile],
+                        cand_cap: int, visit, prog: _Progress, mp: MeshPlan,
+                        *, skip_units: int = 0) -> Dict[str, object]:
+    """The rank mesh's outer loop (real_tpu/engine/driver.py
+    _foreach_shard_mesh): each text's passes (_mesh_passes) on the run's
+    one mesh. A pass is a unit: this rank builds its own
     shard of it and calls visit(fi, text, index, bsearch_steps), whose
     steps gather over the row. In flight and serial builds as in
     _foreach_shard_seq. Returns the loop's account, with the mesh and the
     gathers run, and adds their seconds to the `mesh_gather` phase."""
     mesh = mp.mesh
-    passes = []
-    for fi, tf in enumerate(texts):
-        splan = mp.plans.get(fi)
-        if splan is None:
-            continue
-        nw = tf.packed.n - cfg.seedl + 1
-        rounds = -(-splan.shards // mesh.n_shard)
-        per_shard = shard_windows(nw, rounds * mesh.n_shard)
-        bbits = pick_bucket_bits(cfg.seedl, per_shard, mp.num_reads,
-                                 cap=splan.bucket_bits_cap)
-        passes += [(fi, tf.packed, r, rounds, per_shard, bbits,
-                    splan.serial_build) for r in range(rounds)
-                   if r * mesh.n_shard * per_shard < nw]
+    passes = [(fi, texts[fi].packed, *p) for fi, splan in mp.plans.items()
+              for p in _mesh_passes(cfg, texts[fi].packed, splan,
+                                    mesh.n_shard, mp.num_reads)]
     account = {"units": len(passes), "units_skipped": 0,
                "units_dispatched": 0, "reserved_bytes": mp.reserved_bytes,
                "plans": [dataclasses.asdict(sp) for sp in mp.plans.values()],
@@ -579,7 +601,7 @@ def _foreach_shard_mesh(cfg: RealConfig, texts: List[TextFile],
             account["units_skipped"] += 1
             continue
         while len(inflight) >= (1 if serial else 2):
-            _wait_event(cfg, inflight.pop(0), "index unit in flight")
+            _wait_events(cfg, inflight.pop(0), "index unit in flight")
         if serial:
             index = None
         with prog.phase("index_build"):
@@ -601,6 +623,140 @@ def _foreach_shard_mesh(cfg: RealConfig, texts: List[TextFile],
     return account
 
 
+def local_mesh_cells(cfg: RealConfig,
+                     device) -> Optional[List[torch.device]]:
+    """The cells of an in-process mesh run, or None for a run of one
+    device (or a rank of a job). real_tpu meshes whenever it sees more
+    than one device (use_mesh None); here use_mesh None meshes when the
+    process is no rank of a job (no initialized process group) and either
+    cfg.mesh_devices names the cells or `device` is the unqualified
+    "cuda" and the process sees more than one card, each card a cell.
+    `-device cuda:K` pins one card, `-device cpu` runs one cell; use_mesh
+    True is the rank mesh (plan_mesh), False one device. A cell that
+    cannot be reached raises (mesh.check_cells)."""
+    if cfg.use_mesh is not None or (dist.is_available()
+                                    and dist.is_initialized()):
+        return None
+    if cfg.mesh_devices:
+        return mesh_mod.check_cells(cfg.mesh_devices)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None \
+            and torch.cuda.device_count() > 1:
+        return mesh_mod.local_devices()
+    return None
+
+
+@dataclasses.dataclass
+class LocalLayout:
+    """An in-process mesh run's layout: for each usable text, its shard
+    plan and its own LocalMesh over the cells (real_tpu re-meshes per
+    text), and the bytes the plans reserved on each device."""
+    cells: List[torch.device]
+    texts: List[Tuple[int, plan.StreamShardPlan, mesh_mod.LocalMesh]]
+    reserved_bytes: int
+
+    def tag(self) -> str:
+        """A checkpoint belongs to its cells and each text's grid."""
+        grids = [(fi, m.n_dp, m.n_shard, p.shards)
+                 for fi, p, m in self.texts]
+        return f"local{len(self.cells)}:{grids}-"
+
+
+def _local_layout(cfg: RealConfig, texts: List[TextFile],
+                  cells: List[torch.device], source: pipeline.BatchSource,
+                  reads: int, survivor_cap: int) -> LocalLayout:
+    """Plan each usable text on every distinct device of `cells`, each
+    cell against its share of its device (plan.device_cells), and take the
+    plan of the most shards; the text's mesh is choose_mesh_shape(cells,
+    shards) (real_tpu/engine/driver.py _foreach_shard_mesh). Reserved on
+    each device: every text, the whole read set when resident (it bounds
+    the slices of the rows there) and one step's workspace."""
+    usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
+              if _text_usable(cfg, tf)]
+    reserved = (sum(_text_bytes(t) for _, t in usable)
+                + source.resident_device_bytes
+                + _step_workspace_bytes(source.plans, survivor_cap))
+    per_text = []
+    for fi, text in usable:
+        splan = max((_plan_shards(cfg, text, dev, reserved_bytes=reserved,
+                                  streaming=not source.resident, reads=reads,
+                                  cells=k)
+                     for dev, k in plan.device_cells(cells).items()),
+                    key=lambda sp: sp.shards)
+        n_dp, n_shard = plan.choose_mesh_shape(len(cells), splan.shards)
+        per_text.append((fi, splan,
+                         mesh_mod.make_local_mesh(n_dp, n_shard, cells)))
+    return LocalLayout(cells, per_text, reserved)
+
+
+def _foreach_shard_local(cfg: RealConfig, texts: List[TextFile],
+                         cand_cap: int, visit, prog: _Progress,
+                         layout: LocalLayout, *, skip_units: int = 0,
+                         reads: int = 0) -> Dict[str, object]:
+    """The in-process mesh's outer loop (real_tpu/engine/driver.py
+    _foreach_shard_mesh): each text's passes (_mesh_passes) on the
+    text's own mesh. A pass is a unit: the text is replicated to
+    the mesh's devices, every cell's shard is built, and visit(fi,
+    replicas, mesh, indexes, bsearch_steps) runs its steps. In flight and
+    serial builds as in _foreach_shard_seq. Returns the loop's account,
+    with the mesh (cells, each text's grid, each cell's kernel launches)
+    and the gathers, and adds their seconds to the `mesh_gather` phase."""
+    passes = [(fi, texts[fi].packed, mesh, *p)
+              for fi, splan, mesh in layout.texts
+              for p in _mesh_passes(cfg, texts[fi].packed, splan,
+                                    mesh.n_shard, reads)]
+    account = {"units": len(passes), "units_skipped": 0,
+               "units_dispatched": 0,
+               "reserved_bytes": layout.reserved_bytes,
+               "plans": [dataclasses.asdict(sp)
+                         for _, sp, _ in layout.texts]}
+    inflight: List = []
+    indexes = None
+    replicas: Dict[int, Dict] = {}
+    for unit, (fi, text, mesh, r, rounds, per_shard, bbits, serial) in \
+            enumerate(passes, 1):
+        if unit <= skip_units:
+            account["units_skipped"] += 1
+            continue
+        while len(inflight) >= (1 if serial else 2):
+            _wait_events(cfg, inflight.pop(0), "index unit in flight")
+        if serial:
+            indexes = None
+        if fi not in replicas:            # one text's replicas at a time
+            replicas = {fi: mesh_mod.replicate_text(text, mesh.devices)}
+        with prog.phase("index_build"):
+            indexes = mesh_mod.build_local_shards(
+                replicas[fi], cfg.seedl, r * mesh.n_shard * per_shard,
+                per_shard, mesh, bbits)
+        steps = _bsearch_steps_static(per_shard, cand_cap, bbits)
+        prog.event(f"file {fi}: index pass {r + 1}/{rounds} dispatched "
+                   f"({mesh.n_dp} x {mesh.n_shard} cells, {per_shard} "
+                   f"windows per shard, bsearch={steps}, bbits={bbits})")
+        with prog.phase("match"):
+            handle = visit(fi, replicas[fi], mesh, indexes, steps)
+        account["units_dispatched"] += 1
+        if handle is not None:
+            inflight.append(handle)
+    meshes = [m for _, _, m in layout.texts]
+    launches: Dict[int, Dict[str, int]] = {}
+    for m in meshes:
+        for c, counts in m.launches.items():
+            tot = launches.setdefault(c, dict.fromkeys(counts, 0))
+            for k, v in counts.items():
+                tot[k] += v
+    account["mesh"] = {
+        "n_dp": meshes[0].n_dp if meshes else 0,
+        "n_shard": meshes[0].n_shard if meshes else 0,
+        "devices": [str(d) for d in layout.cells],
+        "grids": [[fi, m.n_dp, m.n_shard] for fi, _, m in layout.texts],
+        "cell_launches": [launches.get(c, {}) for c in
+                          range(len(layout.cells))]}
+    prog.phase_s["mesh_gather"] = (prog.phase_s.get("mesh_gather", 0.0)
+                                   + sum(m.gather_s for m in meshes))
+    account["mesh_gathers"] = sum(m.gathers for m in meshes)
+    return account
+
+
 def _loop_metrics(account: Dict[str, object],
                   source: pipeline.BatchSource) -> Dict[str, object]:
     """What the unit loop and the batch source did, for the result's
@@ -612,6 +768,66 @@ def _loop_metrics(account: Dict[str, object],
 
 
 _STATE_FIELDS = MatchState._fields
+
+
+class _RowStates:
+    """matchUnique's per-batch states and overflow flags, each batch's in
+    one chunk per dp row, on the row's home device: one chunk on the run's
+    device for a run of one device, one per row of the current text's mesh
+    for an in-process mesh (regroup moves them when a text's mesh has
+    other rows)."""
+
+    def __init__(self, plans, homes: List[torch.device]):
+        self.plans = plans
+        self.homes = list(homes)
+        n = len(self.homes)
+        self.state = {bi: [initial_state(p.rows // n, h) for h in self.homes]
+                      for bi, p in enumerate(plans)}
+        self.over = {bi: [torch.zeros(p.rows // n, dtype=torch.bool,
+                                      device=h) for h in self.homes]
+                     for bi, p in enumerate(plans)}
+
+    def _split(self, bi: int, full: MatchState, over: torch.Tensor) -> None:
+        n = len(self.homes)
+        r = self.plans[bi].rows // n
+        self.state[bi] = [MatchState(*(t[d * r:(d + 1) * r].to(h)
+                                       for t in full))
+                          for d, h in enumerate(self.homes)]
+        self.over[bi] = [over[d * r:(d + 1) * r].to(h)
+                         for d, h in enumerate(self.homes)]
+
+    def load(self, states: List[dict], overflow: List[np.ndarray]) -> None:
+        """A checkpoint's whole-batch states and overflow flags."""
+        for bi in range(len(self.plans)):
+            self._split(bi, MatchState(**{
+                f: torch.from_numpy(states[bi][f]) for f in _STATE_FIELDS}),
+                torch.from_numpy(overflow[bi]))
+
+    def regroup(self, homes: List[torch.device]) -> None:
+        """Re-chunk every batch over the rows of `homes` (stream-ordered
+        copies between devices; nothing moves when the rows are the
+        same)."""
+        if list(homes) == self.homes:
+            return
+        h0 = homes[0]
+        full = {bi: (MatchState(*(torch.cat([c[i].to(h0) for c in chunks])
+                                  for i in range(len(_STATE_FIELDS)))),
+                     torch.cat([o.to(h0) for o in self.over[bi]]))
+                for bi, chunks in self.state.items()}
+        self.homes = list(homes)
+        for bi, (st, over) in full.items():
+            self._split(bi, st, over)
+
+    def fetch(self, watchdog_s: float, what: str) -> List[list]:
+        """Every batch's state fields and overflow flags as numpy arrays,
+        the rows concatenated; the queued device work completes inside
+        this fetch."""
+        with watchdog(watchdog_s, what):
+            return [[np.concatenate([c[i].cpu().numpy() for c in chunks])
+                     for i in range(len(_STATE_FIELDS))]
+                    + [np.concatenate([o.cpu().numpy()
+                                       for o in self.over[bi]])]
+                    for bi, chunks in self.state.items()]
 
 
 def _check_step_scores(surv, what: str) -> None:
@@ -662,11 +878,14 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
                      _depth: int = 0,
                      _index_cache: Optional[Dict] = None) -> MatchResult:
     """matchUnique over all texts; `texts` must live on `device`. In a
-    mesh run (cfg.use_mesh) `rs` is this rank's row slice and mesh_plan
-    its layout (plan_mesh); the per-step -debug scan is the one-device
-    path's, a mesh run checks the finished result."""
+    rank mesh run (cfg.use_mesh) `rs` is this rank's row slice and
+    mesh_plan its layout (plan_mesh); an in-process mesh run
+    (local_mesh_cells) matches all of `rs` on its cells. The per-step
+    -debug scan is the one-device path's, a mesh run checks the finished
+    result."""
     dev = _check_run(cfg, texts, device)
     mesh = _mesh_of(cfg, mesh_plan)
+    cells = local_mesh_cells(cfg, dev) if mesh is None else None
     if _index_cache is None:
         _index_cache = {}
     cand_cap = cand_cap or cfg.cand_cap
@@ -682,11 +901,11 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
 
     prog = _Progress(cfg.verbose)
     with prog.phase("setup"):
-        source = _make_source(cfg, rs, patid_filter, _depth, dev)
+        source = _make_source(cfg, rs, patid_filter, _depth, dev, cells)
     plans = source.plans
-    states = {bi: initial_state(p.rows, dev) for bi, p in enumerate(plans)}
-    overflow_dev = {bi: torch.zeros(p.rows, dtype=torch.bool, device=dev)
-                    for bi, p in enumerate(plans)}
+    layout = None if cells is None else _local_layout(
+        cfg, texts, cells, source, numpat, survivor_cap)
+    rows = _RowStates(plans, [cells[0] if cells else dev])
 
     # checkpoint/resume: per-batch MatchState + overflow + completed-unit
     # cursor; only the top-level pass checkpoints (escalation reruns are
@@ -695,63 +914,70 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
     skip_units = 0
     unit_done = [0]
     if cfg.checkpoint and _depth == 0 and patid_filter is None:
-        ck = ckpt_mod.Checkpoint(cfg.checkpoint, _mesh_tag(mesh_plan)
+        ck = ckpt_mod.Checkpoint(cfg.checkpoint, _mesh_tag(mesh_plan, layout)
                                  + ckpt_mod.fingerprint(
             cfg, texts, numpat, len(plans), cand_cap, survivor_cap))
         data = _load_checkpoint(ck, mesh)
         if data:
             skip_units = unit_done[0] = data["units_done"]
-            for bi in range(len(plans)):
-                states[bi] = MatchState(**{
-                    f: torch.from_numpy(data["states"][bi][f]).to(dev)
-                    for f in _STATE_FIELDS})
-                overflow_dev[bi] = torch.from_numpy(
-                    data["overflow"][bi]).to(dev)
+            rows.load(data["states"], data["overflow"])
             prog.event(f"resumed from checkpoint: {skip_units} units done")
-
-    def fetch_states(what: str):
-        """Every batch's state and overflow flags as numpy arrays; the
-        queued device work completes inside this fetch."""
-        with watchdog(cfg.watchdog_s, what):
-            return [[t.cpu().numpy() for t in states[bi]]
-                    + [overflow_dev[bi].cpu().numpy()]
-                    for bi in range(len(plans))]
 
     def checkpoint_unit():
         unit_done[0] += 1
         if ck is None or unit_done[0] % max(cfg.checkpoint_every, 1):
             return
-        host = fetch_states("checkpoint state fetch")
+        host = rows.fetch(cfg.watchdog_s, "checkpoint state fetch")
         ck.save(unit_done[0],
                 [dict(zip(_STATE_FIELDS, h[:-1])) for h in host],
                 [h[-1] for h in host])
         prog.event(f"checkpoint saved ({unit_done[0]} units)")
 
-    win = _DispatchWindow(cfg, dev, enabled=not source.resident)
+    win = _DispatchWindow(cfg, cells or [dev], enabled=not source.resident)
 
     def visit(fi, text, index, steps):
         for bi, b in enumerate(source):
             args = (index.sig, index.pos, index.bb,
                     text.words, text.nbits, text.ncum, text.frag_offsets,
                     b.codes, b.quals, b.valid,
-                    states[bi], fi, np.float32(cfg.filter_value(b.patl)))
+                    rows.state[bi][0], fi,
+                    np.float32(cfg.filter_value(b.patl)))
             step_kw = dict(bsearch_steps=steps, text_has_n=text.has_n, **kw)
             if mesh is None:
-                states[bi], surv = match_step(*args, **step_kw)
+                rows.state[bi][0], surv = match_step(*args, **step_kw)
                 over = surv.overflow
                 if cfg.debug_checks and cfg.scores:
                     _check_step_scores(surv, f"file {fi}, batch {bi}")
             else:
-                states[bi], over = sharded_match_step(*args, mesh=mesh,
-                                                      **step_kw)
-            overflow_dev[bi] |= over
+                rows.state[bi][0], over = sharded_match_step(
+                    *args, mesh=mesh, **step_kw)
+            rows.over[bi][0] |= over
             win.push()
         checkpoint_unit()
-        return _record_event(dev)
+        return _record_events([dev])
+
+    def visit_local(fi, replicas, m, indexes, steps):
+        rows.regroup([m.home(d) for d in range(m.n_dp)])
+        step_kw = dict(bsearch_steps=steps, **kw,
+                       text_has_n=next(iter(replicas.values())).has_n)
+        for bi, parts in enumerate(source.rows(m.layout())):
+            eps = np.float32(cfg.filter_value(plans[bi].patl))
+            for d in range(m.n_dp):
+                rows.state[bi][d], over = mesh_mod.local_row_step(
+                    m, d, indexes, replicas, parts[d], rows.state[bi][d],
+                    fi, eps, **step_kw)
+                rows.over[bi][d] |= over
+            win.push()
+        checkpoint_unit()
+        return _record_events(m.devices)
 
     if mesh is not None:
         account = _foreach_shard_mesh(cfg, texts, cand_cap, visit, prog,
                                       mesh_plan, skip_units=skip_units)
+    elif layout is not None:
+        account = _foreach_shard_local(cfg, texts, cand_cap, visit_local,
+                                       prog, layout, skip_units=skip_units,
+                                       reads=numpat)
     else:
         account = _foreach_shard_seq(
             cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
@@ -763,7 +989,7 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
 
     # the match loop only dispatches; its device work completes here
     with prog.phase("drain"):
-        host = fetch_states("matchUnique result drain")
+        host = rows.fetch(cfg.watchdog_s, "matchUnique result drain")
     overflow = np.zeros(numpat, bool)
     with prog.phase("collect"):
         for bi, p in enumerate(plans):
@@ -816,8 +1042,11 @@ def _mesh_of(cfg: RealConfig,
     return mesh_plan.mesh if mesh_plan is not None else None
 
 
-def _mesh_tag(mesh_plan: Optional[MeshPlan]) -> str:
+def _mesh_tag(mesh_plan: Optional[MeshPlan],
+              layout: Optional[LocalLayout] = None) -> str:
     """A mesh run's checkpoint belongs to its grid and pass layout."""
+    if layout is not None:
+        return layout.tag()
     if mesh_plan is None:
         return ""
     m = mesh_plan.mesh
@@ -1006,7 +1235,7 @@ class _HitFetch:
                                     pin_memory=True)
             self.host.copy_(flat, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(flat.device))
         else:
             self.host = flat
 
@@ -1103,9 +1332,12 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     that overflow a cap, or whose batch overflows the hit buffer, are
     rerun with 16x caps; their first-pass hits are dropped before the
     rerun's are merged. A mesh run takes `rs` and `mesh_plan` as
-    run_match_unique does; every rank of a row holds the row's hits."""
+    run_match_unique does; every rank of a row holds the row's hits. An
+    in-process mesh decodes one CompactHits per dp row of each step, its
+    row ids local to the row (real_tpu's enqueue)."""
     dev = _check_run(cfg, texts, device)
     mesh = _mesh_of(cfg, mesh_plan)
+    cells = local_mesh_cells(cfg, dev) if mesh is None else None
     if _index_cache is None:
         _index_cache = {}
     cand_cap = cand_cap or cfg.cand_cap
@@ -1114,7 +1346,9 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
 
     prog = _Progress(cfg.verbose)
     with prog.phase("setup"):
-        source = _make_source(cfg, rs, patid_filter, _depth, dev)
+        source = _make_source(cfg, rs, patid_filter, _depth, dev, cells)
+    layout = None if cells is None else _local_layout(
+        cfg, texts, cells, source, rs.num_reads, survivor_cap)
     overflow = np.zeros(rs.num_reads, bool)
     acc = _HitAccumulator()
     pending: List[tuple] = []
@@ -1133,7 +1367,7 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     unit_done = [0]
     if cfg.checkpoint and _depth == 0 and patid_filter is None:
         ck = ckpt_mod.AllCheckpoint(
-            cfg.checkpoint, "all-" + _mesh_tag(mesh_plan)
+            cfg.checkpoint, "all-" + _mesh_tag(mesh_plan, layout)
             + ckpt_mod.fingerprint(cfg, texts, rs.num_reads,
                                    len(source.plans), cand_cap,
                                    survivor_cap))
@@ -1152,7 +1386,7 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
         ck.save(unit_done[0], overflow, acc.compact())
         prog.event(f"checkpoint saved ({unit_done[0]} units)")
 
-    win = _DispatchWindow(cfg, dev, enabled=not source.resident)
+    win = _DispatchWindow(cfg, cells or [dev], enabled=not source.resident)
 
     step = (match_step if mesh is None
             else functools.partial(sharded_match_step, mesh=mesh))
@@ -1166,19 +1400,44 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
                 None, fi, np.float32(cfg.filter_value(b.patl)),
                 matchall=True, bsearch_steps=steps,
                 text_has_n=text.has_n, **kw)
-            if cfg.debug_checks and cfg.scores:
-                if bool(torch.isnan(ch.score[:int(ch.count)]).any()):
-                    raise FloatingPointError(
-                        f"NaN score on a hit in file {fi}, batch {bi}")
+            check_hits(ch, fi, bi)
             pending.append((_HitFetch(ch), b.patids, fi))
             drain(_PENDING_MAX)
             win.push()
         checkpoint_unit()
-        return _record_event(dev)
+        return _record_events([dev])
+
+    def visit_local(fi, replicas, m, indexes, steps):
+        step_kw = dict(bsearch_steps=steps, matchall=True, **kw,
+                       text_has_n=next(iter(replicas.values())).has_n)
+        for bi, parts in enumerate(source.rows(m.layout())):
+            p = source.plans[bi]
+            eps = np.float32(cfg.filter_value(p.patl))
+            for d in range(m.n_dp):
+                _, ch = mesh_mod.local_row_step(
+                    m, d, indexes, replicas, parts[d], None, fi, eps,
+                    **step_kw)
+                check_hits(ch, fi, bi)
+                pending.append((_HitFetch(ch),
+                                pipeline.row_plan(p, m.n_dp, d).patids, fi))
+            drain(_PENDING_MAX * m.n_dp)
+            win.push()
+        checkpoint_unit()
+        return _record_events(m.devices)
+
+    def check_hits(ch, fi, bi):
+        if cfg.debug_checks and cfg.scores:
+            if bool(torch.isnan(ch.score[:int(ch.count)]).any()):
+                raise FloatingPointError(
+                    f"NaN score on a hit in file {fi}, batch {bi}")
 
     if mesh is not None:
         account = _foreach_shard_mesh(cfg, texts, cand_cap, visit, prog,
                                       mesh_plan, skip_units=skip_units)
+    elif layout is not None:
+        account = _foreach_shard_local(cfg, texts, cand_cap, visit_local,
+                                       prog, layout, skip_units=skip_units,
+                                       reads=rs.num_reads)
     else:
         account = _foreach_shard_seq(
             cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,

@@ -373,7 +373,7 @@ def score_survivors(surv: Survivors, tw: List[torch.Tensor],
     pat = torch.where(inv, rc[:, None, :], c[:, None, :])
     q = torch.where(inv, quals.flip(1)[:, None, :], quals[:, None, :])
     q = torch.clamp(q.to(torch.int64), 0, 63)
-    ll = torch.from_numpy(tables.ll_f64()).to(dev)
+    ll = tables.ll_on(dev)
     contrib = ll[(ref << 8) | (pat << 6) | q]                # [B, S, patl]
     total = torch.full((B, S), 1.0, dtype=torch.float64, device=dev)
     for i in range(patl):
@@ -390,7 +390,10 @@ def fold_unique(state: MatchState, surv: Survivors, fileid: int,
     """Sequential UpdateUniqueInfo automaton over survivors in merge order
     (matchUniqueImplementation.cpp:97-160 no-scores / :179-248 scores)."""
     dev = state.st.device
-    eps = torch.tensor(np.float32(epsilon), dtype=torch.float32, device=dev)
+    # a fill on the device, not a copy from the host (which would wait for
+    # the device's stream)
+    eps = torch.full((), float(np.float32(epsilon)), dtype=torch.float32,
+                     device=dev)
     st, pos, frag, fid, errs, score = state
     for j in range(surv.valid.shape[1]):
         cvalid, cinv = surv.valid[:, j], surv.inv[:, j]

@@ -5,13 +5,19 @@ windows' four segments, composes the six pair signatures, and a sort
 produces the six sorted lists, each row (signature, position) only
 (MapTextFile.hpp:181-230, ListSet.hpp:41-63).
 
-Windows are processed in position order: real_tpu's phase-major layout
-exists to keep the TPU on static slices, and the entry order before the
-sort is free anyway — within an equal signature the list order is free
-(the matcher imposes reference merge order on its compacted lanes), so
-`sig` and `bb` equal real_tpu's and `pos` equals it up to a permutation
-inside each run of equal signatures. Every sort here is stable, so within
-an equal signature the positions ascend, on the CPU and on the card alike.
+Windows enter the sort in real_tpu's PHASE-MAJOR order: position
+start + 16k + p sits at entry p * C + k (C = windows / 16), the 16 phase
+blocks side by side. Every sort here is stable, so within an equal
+signature the entries keep that order, on the CPU and on the card alike.
+The matcher imposes reference merge order on the lanes it keeps, so the
+order inside an equal-signature run shows only where a run is longer than
+the candidate cap: an overflowing read's first-pass lanes (rerun, never
+printed) are then the first cand_cap entries of the run. real_tpu sorts
+stably wherever it must (wide seeds, and narrow ones with real all-T
+windows, PackedText.order_sentinels), and there `pos` equals its arrays
+exactly; its other narrow builds use an unstable sort, whose order inside
+a run XLA leaves undefined, so there `pos` equals it up to a permutation
+inside each run of equal signatures.
 
 The six lists are built ONE AFTER THE OTHER into preallocated outputs: a
 list's sort key, permutation and the sort's own buffers are dead before
@@ -180,8 +186,12 @@ def build_lists_impl(words: torch.Tensor, nb16: torch.Tensor,
     sc = SigConfig(seedl)
     bucket_bits = bucket_bits or pick_bucket_bits(seedl, num_windows)
     dev = words.device
-    m = 16 * (-(-num_windows // 16))
-    pos = start + torch.arange(m, dtype=torch.int64, device=dev)
+    C = -(-num_windows // 16)
+    m = 16 * C
+    # phase-major: row p holds positions start + 16k + p (k < C)
+    pos = (start + 16 * torch.arange(C, dtype=torch.int64, device=dev)[None]
+           + torch.arange(16, dtype=torch.int64, device=dev)[:, None]
+           ).reshape(-1)
     valid = (pos <= n - seedl) & (pos < start + num_windows) \
         & (_npre16(nb16, ncum16, pos + seedl)
            == _npre16(nb16, ncum16, pos))

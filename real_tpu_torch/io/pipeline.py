@@ -26,6 +26,11 @@ Two modes, chosen by a device-memory budget over the PACKED bytes:
   pinned buffer is ever written twice: each batch packs into fresh pinned
   tensors, and torch's pinned allocator holds a freed one back until the
   copy that read it has finished.
+
+An in-process mesh (parallel/mesh.py LocalMesh) splits every batch over
+its dp rows: make_plans(row_align=cells) keeps each batch's row count
+divisible, and BatchSource.rows() hands each row's slice to each device
+of the row, in either mode.
 """
 
 from __future__ import annotations
@@ -83,13 +88,17 @@ def _round_b(n: int, bmax: int) -> int:
 
 def make_plans(rs: reads_io.ReadSet, batch_size: int, seedl: int,
                patid_filter: Optional[np.ndarray] = None,
-               warn=None, max_rows: int = 0) -> List[BatchPlan]:
+               warn=None, max_rows: int = 0,
+               row_align: int = 1) -> List[BatchPlan]:
     """Length-bucketed fixed-shape batch plans: tail batches pad to the
     same row count as full batches of their bucket. max_rows caps the
-    batch shape below batch_size (overflow reruns use 512-row batches)."""
+    batch shape below batch_size (overflow reruns use 512-row batches).
+    row_align makes every batch's row count divisible by it (an
+    in-process mesh splits each batch over its dp rows)."""
     plans: List[BatchPlan] = []
     warned_short = False
     B = min(batch_size, max_rows) if max_rows else batch_size
+    B = -(-B // row_align) * row_align
     fmask = None
     if patid_filter is not None:
         fmask = np.zeros(rs.num_reads, bool)
@@ -106,6 +115,7 @@ def make_plans(rs: reads_io.ReadSet, batch_size: int, seedl: int,
                 warned_short = True
             continue
         bucket_rows = B if len(patids) > B else _round_b(len(patids), B)
+        bucket_rows = -(-bucket_rows // row_align) * row_align
         nb = -(-len(patids) // bucket_rows)
         for k in range(nb):
             plans.append(BatchPlan(
@@ -177,6 +187,22 @@ def _to_batch(plan: BatchPlan, words, quals, valid) -> Batch:
                  valid=valid)
 
 
+def row_plan(plan: BatchPlan, n_dp: int, d: int) -> BatchPlan:
+    """dp row d's slice of a batch split over n_dp rows: rows
+    [d * R, (d + 1) * R) with R = plan.rows / n_dp, and the real reads
+    among them (none in a row wholly in the padding)."""
+    r = plan.rows // n_dp
+    return BatchPlan(patids=plan.patids[d * r:(d + 1) * r], patl=plan.patl,
+                     rows=r)
+
+
+def _row_slice(t: Optional[torch.Tensor], n_dp: int, d: int):
+    if t is None:
+        return None
+    r = t.shape[0] // n_dp
+    return t[d * r:(d + 1) * r]
+
+
 class BatchSource:
     """Re-iterable batch sequence; resident or streaming (module doc).
 
@@ -184,14 +210,19 @@ class BatchSource:
     tensors on `device`. `resident_device_bytes` reports the packed bytes
     held on the device across passes (0 in streaming mode) so the shard
     planner can reserve them; `streamed_batches` counts what the producer
-    thread has handed over."""
+    thread has handed over.
+
+    A source made with device=None serves an in-process mesh through
+    rows() instead: each batch split over the mesh's dp rows, every row's
+    slice on each device of the row. Its resident_device_bytes is the
+    whole set's, which bounds what any one device holds."""
 
     def __init__(self, rs: reads_io.ReadSet, plans: List[BatchPlan],
                  device, use_native: bool = True,
                  resident_budget_bytes: int = 1 << 30, prefetch: int = 3):
         self.rs = rs
         self.plans = plans
-        self.device = torch.device(device)
+        self.device = None if device is None else torch.device(device)
         self.use_native = use_native
         self.prefetch = prefetch
         has_q = rs.quals_flat is not None
@@ -203,8 +234,13 @@ class BatchSource:
         self._host_cache: Dict[int, tuple] = {}     # streaming passes > 1
         self._host_cache_bytes = 0
         # resident: the packed device slices, uploaded here (the driver's
-        # setup phase) so that the planner's reserve is real when it plans
-        self._cache = self._upload_resident() if self.resident else None
+        # setup phase) so that the planner's reserve is real when it plans;
+        # a mesh source uploads at its first rows() of a row layout
+        self._cache = None
+        self._rows_cache = None         # (row layout, slices per plan)
+        if self.resident and self.device is not None:
+            self._cache = [(p, *parts[0][self.device]) for p, parts in
+                           zip(self.plans, self._upload(((self.device,),)))]
 
     def __len__(self) -> int:
         return len(self.plans)
@@ -212,31 +248,57 @@ class BatchSource:
     def __iter__(self) -> Iterator[Batch]:
         if self.resident:
             return (_to_batch(p, w, q, v) for p, w, q, v in self._cache)
-        return self._stream()
+        return (rows[0][self.device]
+                for rows in self._stream(((self.device,),)))
 
-    def _upload_resident(self) -> List:
-        """One bulk packed transfer per length bucket, sliced per batch on
+    def rows(self, layout) -> Iterator[List[Dict[torch.device, Batch]]]:
+        """The batches of an in-process mesh: layout[d] lists the distinct
+        devices of dp row d's cells, and each item's [d][device] is row
+        d's slice of the batch (row_plan) on that device. A row's slice
+        goes once to each device of the row, which is what real_tpu's
+        P("dp") in_specs give: a resident source keeps the slices across
+        passes (and uploads anew for another layout, after freeing the
+        old one), a streaming one uploads them per batch."""
+        layout = tuple(tuple(torch.device(x) for x in row) for row in layout)
+        if not self.resident:
+            return self._stream(layout)
+        if self._rows_cache is None or self._rows_cache[0] != layout:
+            self._rows_cache = None
+            self._rows_cache = (layout, self._upload(layout))
+        n = len(layout)
+        return ([{dev: _to_batch(row_plan(p, n, d), *parts[d][dev])
+                  for dev in layout[d]} for d in range(n)]
+                for p, parts in zip(self.plans, self._rows_cache[1]))
+
+    def _upload(self, layout) -> List:
+        """One packed host array per length bucket, each dp row's rows of
+        it in one transfer to each device of the row, sliced per batch on
         the device. Only the PACKED words persist; uint8 codes are
-        re-derived per batch each pass and freed after use. make_plans
-        emits a bucket's plans side by side, so the slices come out in the
-        order of self.plans."""
-        out: List = []
+        re-derived per batch each pass and freed after use. Returns, per
+        plan, [row][device] -> (words, quals, valid)."""
+        n = len(layout)
+        out: List = [[{} for _ in range(n)] for _ in self.plans]
         by_bucket: dict = {}
-        for p in self.plans:
-            by_bucket.setdefault((p.patl, p.rows), []).append(p)
+        for i, p in enumerate(self.plans):
+            by_bucket.setdefault((p.patl, p.rows), []).append(i)
         for (patl, rows), group in by_bucket.items():
-            big = BatchPlan(patids=np.concatenate([p.patids for p in group]),
-                            patl=patl, rows=rows * len(group))
-            words, quals, valid = _pack_host_tensors(self.rs, big,
-                                                     self.use_native)
-            dw = words.to(self.device)
-            dq = None if quals is None else quals.to(self.device)
-            dv = valid.to(self.device)
-            for k, p in enumerate(group):
-                o = k * rows
-                out.append((p, dw[o:o + rows],
-                            None if dq is None else dq[o:o + rows],
-                            dv[o:o + rows]))
+            big = BatchPlan(
+                patids=np.concatenate([self.plans[i].patids for i in group]),
+                patl=patl, rows=rows * len(group))
+            host = _pack_host_tensors(self.rs, big, self.use_native)
+            r = rows // n
+            for d in range(n):
+                # row d of every batch of the bucket, side by side
+                sl = [None if t is None else
+                      t.view(len(group), n, r, *t.shape[1:])[:, d]
+                      .reshape(len(group) * r, *t.shape[1:])
+                      for t in host]
+                for dev in layout[d]:
+                    dt = [None if t is None else t.to(dev) for t in sl]
+                    for k, i in enumerate(group):
+                        out[i][d][dev] = tuple(
+                            None if t is None else t[k * r:(k + 1) * r]
+                            for t in dt)
         return out
 
     def _packed(self, i: int, plan: BatchPlan, pinned: bool) -> tuple:
@@ -251,11 +313,17 @@ class BatchSource:
                 self._host_cache_bytes += nbytes
         return hp
 
-    def _stream(self) -> Iterator[Batch]:
+    def _stream(self, layout) -> Iterator[List[Dict[torch.device, Batch]]]:
+        """Per batch, each dp row's slice on each device of the row
+        (layout as in rows(); one row of one device for a one-device
+        source), packed once on the host by the producer thread."""
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
-        on_card = self.device.type == "cuda"
-        upload = torch.cuda.Stream(self.device) if on_card else None
+        n = len(layout)
+        devices = list(dict.fromkeys(dev for row in layout for dev in row))
+        on_card = any(dev.type == "cuda" for dev in devices)
+        upload = {dev: torch.cuda.Stream(dev) for dev in devices
+                  if dev.type == "cuda"}
 
         def put(item) -> bool:
             """Hand `item` to the consumer unless it has gone away."""
@@ -267,23 +335,28 @@ class BatchSource:
                     continue
             return False
 
+        def to_device(hp, d, dev):
+            """Row d's slice of the packed batch `hp` on `dev`, and the
+            event its copies are ready at (None off the card)."""
+            sl = tuple(_row_slice(t, n, d) for t in hp)
+            if dev.type != "cuda":
+                return sl, None
+            with torch.cuda.stream(upload[dev]):
+                out = tuple(None if t is None else
+                            t.to(dev, non_blocking=True) for t in sl)
+                ready = torch.cuda.Event()
+                ready.record(upload[dev])
+            return out, ready
+
         def producer():
             try:
                 for i, plan in enumerate(self.plans):
                     if stop.is_set():
                         return
                     hp = self._packed(i, plan, pinned=on_card)
-                    if on_card:
-                        with torch.cuda.stream(upload):
-                            dev = tuple(
-                                None if t is None else
-                                t.to(self.device, non_blocking=True)
-                                for t in hp)
-                            ready = torch.cuda.Event()
-                            ready.record(upload)
-                    else:
-                        dev, ready = hp, None
-                    if not put((plan, dev, ready)):
+                    item = [{dev: to_device(hp, d, dev) for dev in row}
+                            for d, row in enumerate(layout)]
+                    if not put((plan, item)):
                         return
                 put(None)
             except BaseException as e:   # surfaces in the consumer
@@ -298,15 +371,21 @@ class BatchSource:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                plan, (words, quals, valid), ready = item
-                if ready is not None:
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(ready)
-                    for x in (words, quals, valid):
-                        if x is not None:
-                            x.record_stream(current)
+                plan, parts = item
+                out = []
+                for d, row in enumerate(parts):
+                    got = {}
+                    for dev, (tensors, ready) in row.items():
+                        if ready is not None:
+                            current = torch.cuda.current_stream(dev)
+                            current.wait_event(ready)
+                            for x in tensors:
+                                if x is not None:
+                                    x.record_stream(current)
+                        got[dev] = _to_batch(row_plan(plan, n, d), *tensors)
+                    out.append(got)
                 self.streamed_batches += 1
-                yield _to_batch(plan, words, quals, valid)
+                yield out
         finally:
             stop.set()
             t.join(timeout=30)
@@ -315,8 +394,11 @@ class BatchSource:
 def make_source(rs: reads_io.ReadSet, batch_size: int, seedl: int, device,
                 patid_filter: Optional[np.ndarray] = None, warn=None,
                 resident_budget_bytes: int = 1 << 30, max_rows: int = 0,
-                use_native: bool = True) -> BatchSource:
+                use_native: bool = True, row_align: int = 1) -> BatchSource:
+    """device=None: a source for an in-process mesh (BatchSource.rows),
+    its batches' rows divisible by row_align (the mesh's cell count, so
+    that every grid of those cells splits them evenly)."""
     plans = make_plans(rs, batch_size, seedl, patid_filter, warn,
-                       max_rows=max_rows)
+                       max_rows=max_rows, row_align=row_align)
     return BatchSource(rs, plans, device, use_native,
                        resident_budget_bytes=resident_budget_bytes)

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -193,6 +193,21 @@ def plan_index_shards_streaming(num_windows: int, fracmem: float,
         return pipe_plan
     return StreamShardPlan(shards=serial, serial_build=True,
                            bucket_bits_cap=bits_cap)
+
+
+def device_cells(devices) -> Dict[torch.device, int]:
+    """The cells of an in-process mesh (parallel/mesh.py LocalMesh) on each
+    distinct device, in first-seen order. Cells that share a device share
+    its memory: the driver plans each cell's shard against 1/k of the
+    device's memory and of the bytes reserved there (texts, reads, the
+    step's workspace), so that the k shards planned for one device fit
+    -f of it together, and plans over distinct devices each against that
+    device's own memory (hbm_bytes_per_device)."""
+    out: Dict[torch.device, int] = {}
+    for d in devices:
+        d = torch.device(d)
+        out[d] = out.get(d, 0) + 1
+    return out
 
 
 def choose_mesh_shape(n_devices: int, total_shards: int):

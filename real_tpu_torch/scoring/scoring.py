@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 DFLT_SIMILARITY = 0.995
 DFLT_ERR = 0.0
@@ -104,11 +105,21 @@ class ScoreTables:
 
     def __init__(self, scoring: "Scoring") -> None:
         self.ll_hi, self.ll_lo = scoring.ll_f32_pair()
+        self._ll_on = {}
 
     def ll_f64(self) -> np.ndarray:
         """The LUT exactly as the match step sums it: f64(hi) + f64(lo)."""
         return (self.ll_hi.astype(np.float64)
                 + self.ll_lo.astype(np.float64))
+
+    def ll_on(self, device) -> torch.Tensor:
+        """ll_f64 as a tensor on `device`, uploaded once per device: a copy
+        from pageable host memory waits for the device's stream, so a copy
+        per step would end every step in a synchronization."""
+        dev = torch.device(device)
+        if dev not in self._ll_on:
+            self._ll_on[dev] = torch.from_numpy(self.ll_f64()).to(dev)
+        return self._ll_on[dev]
 
 
 _TABLE_CACHE = {}

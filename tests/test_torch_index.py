@@ -76,6 +76,38 @@ def test_build_index_equals_real_tpu(case):
         assert last_real == np.flatnonzero(allt).max()
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pos_order_inside_equal_signatures(case):
+    """Inside a run of equal signatures the port keeps the stable
+    phase-major window order (position start + 16k + p before
+    start + 16k' + p' iff (p, k) < (p', k')). Where real_tpu's sort is
+    stable too (real all-T windows: order_sentinels) `pos` equals its
+    array exactly. Its other narrow builds sort unstably, and XLA leaves
+    the order inside a run undefined: bisect_table is such a case, where
+    the arrays differ inside a run (they stay equal as multisets,
+    test_build_index_equals_real_tpu)."""
+    n, seed, n_prob, t_run, frags, start, nwin, bits = CASES[case]
+    codes, ranges = _genome(n, seed, n_prob, t_run, frags)
+    jt = j_packed.build_packed_text(codes, ranges)
+    tt = t_packed.build_packed_text(codes, ranges, "cpu")
+    ti = t_build.build_index(tt, 32, start=start, num_windows=nwin,
+                             bucket_bits=bits)
+    sig = ti.sig.numpy().reshape(6, -1)
+    pos = ti.pos.numpy().reshape(6, -1).astype(np.int64)
+    real = (pos[:, 1:] != 0x7FFFFFFF) & (pos[:, :-1] != 0x7FFFFFFF)
+    run = (sig[:, 1:] == sig[:, :-1]) & real
+    assert run.any() or case in ("histogram_with_n", "sub_range")
+    key = ((pos - start) & 15) * (1 << 32) + ((pos - start) >> 4)
+    assert (key[:, 1:][run] > key[:, :-1][run]).all()
+    pos_j = np.asarray(j_build.build_index(
+        jt, 32, start=start, num_windows=nwin, bucket_bits=bits).pos)
+    same = bool((pos_j == ti.pos.numpy()).all())
+    if t_run:
+        assert same
+    if case == "bisect_table":
+        assert not same
+
+
 @pytest.mark.parametrize("windows", [100, 20000, 4_600_000, 46_000_000])
 @pytest.mark.parametrize("reads", [0, 300, 100_000])
 def test_host_plan_math_equal(windows, reads):

@@ -224,14 +224,16 @@ def test_bsearch_steps_on_2x4(data, steps):
         np.concatenate([o.numpy() for _, o, _ in got]), want_over)
 
 
-@pytest.mark.parametrize("grid", [(1, 4), (2, 4)], ids=["1x4", "2x4"])
+@pytest.mark.parametrize("grid", [(1, 1), (1, 4), (2, 4)],
+                         ids=["1x1", "1x4", "2x4"])
 def test_last_shard_past_the_text_with_all_t_reads(data, grid):
     """The genome ends in 150 T's, in the last shard, which runs past the
     last window (its tail is sentinels, whose signature is the all-T
     probe's); four reads are all T and overflow their candidate caps.
-    An overflowing read's state is rerun by the driver and never printed:
-    its st is equal, its position is not held (the port and real_tpu keep
-    other lanes of an overflowing all-T read already on one device)."""
+    Every field equals real_tpu's and the one-device step's, the
+    overflowing reads' too: their first-pass lanes are the first cand_cap
+    entries of the all-T run, which both builds keep in the stable
+    phase-major window order (position 29856, phase 0, ahead of 29850)."""
     n_dp, n_shard = grid
     codes, ranges, batch, quals, valid = data[True]
     nw = len(codes) - 32 + 1
@@ -240,15 +242,15 @@ def test_last_shard_past_the_text_with_all_t_reads(data, grid):
                                 n_shard, 32, True, False, 0)
     got = _port(codes, ranges, batch, quals, valid, n_dp, n_shard, 32, True,
                 False, 0)
+    one = _one_device(codes, ranges, batch, quals, valid, 32, True)
     over = np.concatenate([o.numpy() for _, o, _ in got])
     np.testing.assert_array_equal(over, want_over)
     assert over[[5, 77, 130, 250]].all() and over.sum() < 8
     for f in FIELDS:
         g = np.concatenate([getattr(st, f).numpy() for st, _, _ in got])
-        w = getattr(want, f)
-        np.testing.assert_array_equal(g if f == "st" else g[~over],
-                                      w if f == "st" else w[~over],
-                                      err_msg=f)
+        np.testing.assert_array_equal(g, getattr(want, f), err_msg=f)
+        np.testing.assert_array_equal(g, getattr(one, f).numpy(), err_msg=f)
+    assert (want.pos[[5, 77, 130, 250]] == 29856).all()
 
 
 # ---------------------------------------------------------------------------
