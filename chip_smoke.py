@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (real_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ranks N     # (i) and (j) alone, a card per rank
+    python3 chip_smoke.py --ranks N     # (i) and (j) alone, a card per
+                                        # rank; (l) too on 2N cards or more
     python3 chip_smoke.py --cells       # (k)'s runs of a cell per card alone
 
 Drives the port's four paths through their entry points on CUDA, holds
@@ -36,13 +37,18 @@ the matchUnique genome split over two .fa files of one -t directory, in
 both modes, (i) the matchUnique path as two ranks sharing the card,
 with and without -exchange, and (j) index shards across ranks: the
 matchUnique, yeast matchAll, chr21 and chr21 -l 48 paths as mesh ranks
-sharing the card (python -m real_tpu_torch.parallel.multihost -mesh), and
+sharing the card (python -m real_tpu_torch.parallel.multihost -mesh),
 (k) the in-process mesh: the same paths as one process driving a grid of
-cells on the card (RealConfig.mesh_devices).
+cells on the card (RealConfig.mesh_devices), and (l) ranks that each drive
+such a mesh over their read slice (real_tpu's multi-host design): two
+ranks sharing the card, two cells each (multihost.run_rank).
 
 With --ranks N it runs phases 1-2, the matchUnique data, phase (i) and the
 matchUnique -shards 2 mesh of (j) alone, as N ranks on N cards (one each;
-a 2 x 2 grid at N = 4); it needs N cards. With --cells it runs phases 1-2,
+a 2 x 2 grid at N = 4); it needs N cards. On a machine of at least 2N
+cards it then runs (l)'s matchUnique -shards 2 and chr21 -shards 2 as N
+ranks, each meshing the cards multihost.rank_cells gives it (phase (i)
+pins a card per rank there). With --cells it runs phases 1-2,
 the matchUnique and chr21 paths on cuda:0 alone, then (k)'s runs of one
 cell per card and the CLI's default mesh of every card against them; it
 needs more than one card.
@@ -168,7 +174,20 @@ Phases:
                 "error"). With more than one
                 card also matchUnique -shards 4 and chr21 -shards 2 with
                 a cell per card, and the CLI with no device flag (the
-                default mesh of every card)
+                default mesh of every card). (l) ranks that each drive a
+                local mesh: two ranks of multihost.run_rank in processes
+                of their own, each with RealConfig.mesh_devices =
+                ["cuda:0"] x 2 over its read slice (gloo, -f 0.75 / 2, a
+                timeout each): matchUnique -shards 1 (2 x 1 per rank) and
+                -shards 2 (1 x 2), yeast matchAll, chr21 at full size and
+                chr21 -l 48 on the 262,144 wide reads, each -shards 2 (1 x
+                2); each concatenation byte-identical to its path's
+                one-device records; every rank's cells, grid and launches
+                of probe_candidates (the 64-bit entry at -l 48) and
+                verify_windows (> 0) on every cell, each rank's peak per
+                card under its -f; each rank's wall_s and seconds from
+                start to exit beside (j)'s rank mesh and (k)'s in-process
+                mesh of the grid
  11. gatherbench  the tool's JSON line at both table sizes; the kernel's
                 launches counted over each run
  12. times      each kernel at each main-path shape: kernel, plain version
@@ -702,8 +721,11 @@ def truth_share(pc: PathCfg, result, truth) -> float:
 # match-phase (dispatch) seconds and batch steps, beside which phase (k)
 # prints its runs
 ONE_DEVICE = {}
-# per phase (j) run: the ranks' metrics, beside which phase (k) prints
+# per phase (j) run: the ranks' metrics (with each rank's seconds from
+# start to exit), beside which phases (k) and (l) print
 RANK_MESH = {}
+# per phase (k) run of one card: its wall seconds, beside which (l) prints
+LOCAL_MESH = {}
 
 
 def _batch_steps(cfg, rs, m, row_align=1) -> int:
@@ -1260,6 +1282,9 @@ def ranks_phase(torch, pc: PathCfg, g, r, blob, tmp, world=2):
     cards = torch.cuda.device_count()
     base = ["-t", g, "-p", r, "-R", "0", "-B", str(pc.batch),
             "-e", str(pc.totalkmax), "-shards", "3"]
+    # a rank with several cards of its own would mesh them (phase (l)),
+    # and such a mesh refuses -exchange: there each rank pins its card
+    pin = cards >= 2 * world
     single = os.path.join(tmp, "one.txt")
     (wall,) = _subprocesses(
         [[sys.executable, "-m", "real_tpu_torch.cli.main", *base,
@@ -1287,7 +1312,9 @@ def ranks_phase(torch, pc: PathCfg, g, r, blob, tmp, world=2):
               "-rank", str(rank), *base,
               # ranks that share a card share its memory
               "-f", str(0.75 / -(-world // cards)), "-o", out,
-              "-metrics", out + ".json", *extra] for rank in range(world)],
+              "-metrics", out + ".json", *extra]
+             + (["-device", f"cuda:{rank % cards}"] if pin else [])
+             for rank in range(world)],
             tag, tmp)
         merged = b""
         for rank in range(world):
@@ -1409,6 +1436,7 @@ def mesh_run(torch, tag, pc: PathCfg, g, r, shards, world, want, tmp):
                 or (pc.seedl > 32) != (k["probe_candidates_wide"] > 0):
             raise AssertionError(f"(j) {tag}: rank {rank} did not launch "
                                  "the fused kernels")
+        m["start_to_exit_s"] = secs[rank]
         metrics.append(m)
     records = merged.count(b"\n")
     log(f"[mesh] {tag}: {n_dp} x {n_shard} grid, {world} ranks on {cards} "
@@ -1479,6 +1507,8 @@ def local_mesh_run(torch, tag, pc: PathCfg, g, r, shards, cells, want):
         f"{k['verify_windows']}, gather_word_windows "
         f"{k['gather_word_windows']}" for c, k in
         enumerate(mesh["cell_launches"])))
+    if len(set(mesh["devices"])) == 1:
+        LOCAL_MESH[(pc.name, n_dp, n_shard)] = wall
     one = ONE_DEVICE.get(pc.name)
     if one is not None:
         log(f"[localmesh] {tag}: one-device run of the path: wall_s "
@@ -1597,6 +1627,132 @@ def local_mesh_phase(torch, runs, multi, tmp):
                 local_mesh_run(torch, *run)
         _, pc, g, r, _, _, want = multi[0]
         cli_default_mesh(torch, pc, g, r, want, tmp)
+
+
+# a rank of phase (l): multihost.run_rank with the rank's cells as JSON in
+# argv[1] (null: rank_cells' own cards), then this process's peak
+# allocated bytes on each card into the file argv[2]
+RANK_CELLS_CODE = (
+    "import json, sys, torch\n"
+    "from real_tpu_torch.cli import main as cli\n"
+    "from real_tpu_torch.parallel import multihost\n"
+    "job, args = multihost.parse_job(sys.argv[3:])\n"
+    "cfg = cli.parse_args(args)\n"
+    "cfg.mesh_devices = json.loads(sys.argv[1])\n"
+    "rc = multihost.run_rank(cfg, job)\n"
+    "with open(sys.argv[2], 'w') as f:\n"
+    "    json.dump([torch.cuda.max_memory_allocated(c)\n"
+    "               for c in range(torch.cuda.device_count())], f)\n"
+    "sys.exit(rc)\n")
+
+
+def rank_local_run(torch, tag, pc: PathCfg, g, r, shards, world, cells,
+                   want, tmp):
+    """(l) one run of `world` ranks, each driving an in-process mesh of
+    its own through multihost.run_rank on its read slice: `cells` the
+    cells of every rank (RealConfig.mesh_devices; None: each rank's own
+    cards from rank_cells), -shards `shards`, -f 0.75 over the ranks that
+    share a card. The rank-order concatenation must be `want`, every cell
+    of every rank must launch both fused entries (the 64-bit one for wide
+    seeds) and each rank's peak on each card must stay under its -f of the
+    card. Prints each rank's wall_s and seconds from start to exit beside
+    phase (j)'s rank mesh and phase (k)'s in-process mesh of the grid."""
+    from real_tpu_torch.parallel import multihost, plan
+    cards = torch.cuda.device_count()
+    per_rank = [list(cells) if cells else multihost.rank_cells(
+        "cuda", multihost.HostTopology(rank, world), cards, dict(os.environ))
+        for rank in range(world)]
+    sharing = max([sum(f"cuda:{c}" in rc for rc in per_rank)
+                   for c in range(cards)] + [1])
+    fracmem = 0.75 / sharing
+    n_dp, n_shard = plan.choose_mesh_shape(len(per_rank[0]), shards)
+    slug = "ranklocal_" + re.sub(r"\W+", "_", tag)
+    out = os.path.join(tmp, f"{slug}.txt")
+    secs = _subprocesses(
+        [[sys.executable, "-c", RANK_CELLS_CODE,
+          json.dumps(list(cells) if cells else None),
+          f"{out}.peak.{rank}",
+          "-init_method", f"file://{os.path.join(tmp, slug + '.store')}",
+          "-world", str(world), "-rank", str(rank),
+          "-t", g, "-p", r, "-R", "0", "-B", str(pc.batch),
+          "-e", str(pc.totalkmax), "-u", str(int(pc.unique)),
+          "-l", str(pc.seedl), "-shards", str(shards), "-f", str(fracmem),
+          "-o", out, "-metrics", out + ".json"] for rank in range(world)],
+        slug, tmp)
+    merged = b""
+    for rank in range(world):
+        with open(f"{out}.{rank}", "rb") as f:
+            merged += f.read()
+    if merged != want:
+        raise AssertionError(f"(l) {tag}: the rank-order concatenation "
+                             "differs from the path's one-device records")
+    metrics = []
+    for rank in range(world):
+        with open(f"{out}.json.{rank}") as f:
+            m = json.load(f)
+        with open(f"{out}.peak.{rank}") as f:
+            peaks = json.load(f)
+        with open(os.path.join(tmp, f"{slug}.{rank}.log")) as f:
+            line = re.search(r"^rank \d+ of \d+: device (\S+), cells (.+)$",
+                             f.read(), re.M)
+        mesh = m["mesh"]
+        if line is None or line.group(2).split() != per_rank[rank] \
+                or mesh["devices"] != per_rank[rank] \
+                or mesh["grids"] != [[0, n_dp, n_shard]] \
+                or (mesh["rank"], mesh["ranks"]) != (rank, world):
+            raise AssertionError(f"(l) {tag}: rank {rank} ran on {mesh}")
+        for c, k in enumerate(mesh["cell_launches"]):
+            if k["probe_candidates"] <= 0 or k["verify_windows"] <= 0 \
+                    or (pc.seedl > 32) != (k["probe_candidates_wide"] > 0):
+                raise AssertionError(f"(l) {tag}: rank {rank} cell {c} did "
+                                     f"not launch the fused kernels ({k})")
+        for card, peak in enumerate(peaks):
+            budget = fracmem * torch.cuda.mem_get_info(card)[1]
+            if peak > budget:
+                raise AssertionError(f"(l) {tag}: rank {rank} peak {peak} B "
+                                     f"on cuda:{card} over -f {fracmem} = "
+                                     f"{budget:.0f} B")
+        gathers = m["mesh_gathers"]
+        gather_s = m["phase_s"]["mesh_gather"]
+        log(f"[ranklocal] {tag}, rank {rank} of {world}: {n_dp} x {n_shard} "
+            f"grid on {', '.join(mesh['devices'])}; {m['num_reads']} reads, "
+            f"units {m['units_dispatched']}, {secs[rank]:.2f}s start to "
+            f"exit, wall_s {m['wall_s']}, mesh_gather {gather_s:.4f}s over "
+            f"{gathers} gathers; peak by card {peaks} B (-f {fracmem}); "
+            "phase_s " + " ".join(f"{k}={v:.3f}s"
+                                  for k, v in m["phase_s"].items()))
+        log(f"[ranklocal] {tag}, rank {rank}: cell launches " + "; ".join(
+            f"{c}: probe_candidates {k['probe_candidates']} (64-bit "
+            f"{k['probe_candidates_wide']}), verify_windows "
+            f"{k['verify_windows']}, gather_word_windows "
+            f"{k['gather_word_windows']}" for c, k in
+            enumerate(mesh["cell_launches"])))
+        metrics.append(m)
+    records = merged.count(b"\n")
+    log(f"[ranklocal] {tag}: {world} ranks x {len(per_rank[0])} cells on "
+        f"{cards} card(s), concatenation byte-identical to the path's "
+        f"{records} one-device records")
+    grid = (pc.name, n_dp, n_shard)
+    ranks, local, one = (RANK_MESH.get(grid), LOCAL_MESH.get(grid),
+                         ONE_DEVICE.get(pc.name))
+    log(f"[ranklocal] {tag}: beside it, the {n_dp} x {n_shard} grid as "
+        "phase (j)'s rank mesh: " + (
+            f"wall_s {[x['wall_s'] for x in ranks]}, start to exit "
+            f"{[round(x['start_to_exit_s'], 2) for x in ranks]} s" if ranks
+            else "not run")
+        + "; as phase (k)'s in-process mesh: " + (
+            f"wall_s {local:.3f} (match + output)" if local is not None
+            else "not run")
+        + (f"; one device: wall_s {one['wall_s']:.3f}" if one else ""))
+    return metrics
+
+
+def rank_local_phase(torch, runs, world, cells, tmp):
+    """(l) ranks that each drive a local mesh: each of `runs` = (tag,
+    path, genome, reads, -shards, the path's one-device records) as
+    `world` ranks through rank_local_run."""
+    for tag, pc, g, r, shards, want in runs:
+        rank_local_run(torch, tag, pc, g, r, shards, world, cells, want, tmp)
 
 
 def gatherbench_phase(big_m):
@@ -1865,6 +2021,15 @@ def drive(torch, dev) -> list:
              blobs_w[48]),
         ], _card_cell_runs(torch, unique, gu, ru, blob_u, chr21, gc21, rc,
                            blob_c), tmp)
+        rank_local_phase(torch, [
+            ("matchUnique -shards 1", unique, gu, ru, 1, blob_u),
+            ("matchUnique -shards 2", unique, gu, ru, 2, blob_u),
+            ("yeast matchAll -shards 2", yeast, ga, ra, 2, blob_a),
+            ("chr21 -shards 2", chr21, gc21, rc, 2, blob_c),
+            ("chr21 -l 48 -shards 2", dataclasses.replace(
+                wide[0], num_reads=WIDE_READS), gc21, rc_wide, 2,
+             blobs_w[48]),
+        ], 2, one * 2, tmp)
         del blob_u, blob_a, blob_c, blobs_w
 
         rlaunches = gatherbench_phase(big_table.numel())
@@ -1914,16 +2079,34 @@ def cells_only(torch) -> None:
 
 def ranks_only(torch, world: int) -> None:
     """--ranks N: the matchUnique data, phase (i) and the matchUnique
-    -shards 2 mesh of (j) (the 2 x 2 grid at N = 4), N ranks on N cards."""
-    if torch.cuda.device_count() < world:
+    -shards 2 mesh of (j) (the 2 x 2 grid at N = 4), N ranks on N cards;
+    on a machine of at least 2N cards also (l)'s matchUnique -shards 2
+    and chr21 -shards 2 as N ranks, each driving its own cards
+    (rank_cells), against one-device runs on cuda:0."""
+    cards = torch.cuda.device_count()
+    if cards < world:
         raise SystemExit(f"--ranks {world} needs {world} cards, this "
-                         f"machine has {torch.cuda.device_count()}")
+                         f"machine has {cards}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         g, codes = make_genome(tmp, UNIQUE)
         r = make_reads(tmp, UNIQUE, codes)[0]
         one = ranks_phase(torch, UNIQUE, g, r, None, tmp, world=world)
         mesh_phase(torch, [("matchUnique -shards 2", UNIQUE, g, r, 2, world,
                             one)], tmp)
+        if cards < 2 * world:
+            return
+        gc21, codes_c = make_genome(tmp, CHR21)
+        rc = make_reads(tmp, CHR21, codes_c)[0]
+        cfg = path_config(CHR21, gc21, rc)
+        for _ in range(2):                # a warmup, then the timed run
+            rs, _, res, blob_c, records, ph = run_once(cfg, rc, "cuda:0")
+        _one_device(CHR21.name, cfg, rs, res, ph)
+        log(f"[ranklocal] {CHR21.name} on cuda:0 alone: {records} records, "
+            f"wall_s {ph['match'] + ph['output']:.3f}")
+        rank_local_phase(torch, [
+            ("matchUnique -shards 2, own cards", UNIQUE, g, r, 2, one),
+            ("chr21 -shards 2, own cards", CHR21, gc21, rc, 2, blob_c),
+        ], world, None, tmp)
 
 
 def main() -> int:

@@ -74,17 +74,21 @@ class RealConfig:
                                  # owns and loads the others' from this
                                  # shared directory (parallel/multihost.py)
     # index shards over a dp x shard grid (parallel/mesh.py). None (the
-    # default, real_tpu's "more than one local device"): the in-process
-    # mesh of every card when the process is no rank of a job, `device` is
-    # the unqualified "cuda" and it sees more than one card, or of the
-    # cells in mesh_devices; else one device. True: the rank mesh of a
-    # multi-process job (the runner's -mesh; without a process group it
-    # raises). False: one device.
+    # default, real_tpu's "more than one local device" of each process):
+    # the in-process mesh of the cells in mesh_devices, else, when
+    # `device` is the unqualified "cuda", of every card the process sees
+    # (more than one), or in a job of several ranks of the rank's own
+    # cards (parallel/multihost.py rank_cells, when more than one); else
+    # one device. True: the rank mesh of a multi-process job (the
+    # runner's -mesh; without a process group it raises). False: one
+    # device.
     use_mesh: Optional[bool] = None
     # the in-process mesh's cells, one device string each ("cuda:0",
-    # "cpu"; a device may hold several cells); no CLI flag. The port's
-    # counterpart of the forced host-device count of real_tpu's tests:
-    # ["cpu"] * 8 runs 8 CPU cells, ["cuda:0"] * 4 four cells on one card.
+    # "cpu"; a device may hold several cells); no CLI flag. Under a
+    # process group of several ranks it names THIS rank's cells. The
+    # port's counterpart of the forced host-device count of real_tpu's
+    # tests (per process in tests/multihost_worker.py): ["cpu"] * 8 runs
+    # 8 CPU cells, ["cuda:0"] * 4 four cells on one card.
     mesh_devices: Optional[List[str]] = None
     device: str = "cuda"         # -device cuda|cpu
     # -native 0: the host phases (parsing, row packing, hit sort, record

@@ -41,7 +41,9 @@ shard-major after every step (_foreach_shard_mesh). The in-process mesh
 the same grid of devices driven by one process: each text gets its own
 mesh, shaped by its shard plan (_local_layout), every batch is split over
 the dp rows, and each pass builds every cell's shard and folds each row's
-survivors on the row's home device (_foreach_shard_local).
+survivors on the row's home device (_foreach_shard_local). A rank of a
+multi-process job drives such a mesh of its own cards over its read slice
+(real_tpu's multi-host design), exchanging nothing with the other ranks.
 
 Entry points run on the card: `device` defaults to "cuda" and raises
 without CUDA; only an explicit device="cpu" runs on the CPU.
@@ -71,7 +73,7 @@ from real_tpu_torch.index.build import (SignatureIndex, build_index,
                                         pick_bucket_bits, shard_windows)
 from real_tpu_torch.io import fasta, pipeline, reads as reads_io
 from real_tpu_torch.parallel import mesh as mesh_mod
-from real_tpu_torch.parallel import plan
+from real_tpu_torch.parallel import multihost, plan
 from real_tpu_torch.parallel.mesh import sharded_match_step
 from real_tpu_torch.scoring.scoring import Scoring, score_tables
 from real_tpu_torch.text.packed import PackedText, build_packed_text
@@ -523,7 +525,6 @@ def plan_mesh(cfg: RealConfig, rs: reads_io.ReadSet,
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("use_mesh needs an initialized process group "
                            "(parallel/multihost.initialize)")
-    from real_tpu_torch.parallel import multihost
     topo = multihost.current_topology()
     batches = pipeline.make_plans(rs, cfg.batch_size, cfg.seedl)
     read_bytes = sum(pipeline.packed_batch_bytes(
@@ -626,40 +627,62 @@ def _foreach_shard_mesh(cfg: RealConfig, texts: List[TextFile],
 def local_mesh_cells(cfg: RealConfig,
                      device) -> Optional[List[torch.device]]:
     """The cells of an in-process mesh run, or None for a run of one
-    device (or a rank of a job). real_tpu meshes whenever it sees more
-    than one device (use_mesh None); here use_mesh None meshes when the
-    process is no rank of a job (no initialized process group) and either
-    cfg.mesh_devices names the cells or `device` is the unqualified
-    "cuda" and the process sees more than one card, each card a cell.
+    device. real_tpu meshes a process's local devices whenever it sees
+    more than one (use_mesh None), in a job of several processes too; so
+    here use_mesh None meshes the cells cfg.mesh_devices names (under a
+    job: this rank's cells), else, when `device` is the unqualified
+    "cuda", every card the process sees, or in a job of several ranks the
+    rank's own cards (multihost.rank_cells) when they are more than one.
     `-device cuda:K` pins one card, `-device cpu` runs one cell; use_mesh
     True is the rank mesh (plan_mesh), False one device. A cell that
-    cannot be reached raises (mesh.check_cells)."""
-    if cfg.use_mesh is not None or (dist.is_available()
-                                    and dist.is_initialized()):
+    cannot be reached raises (mesh.check_cells), and so does a rank's
+    mesh with -exchange (real_tpu ignores the exchange on its mesh path;
+    the port raises where real_tpu falls back)."""
+    if cfg.use_mesh is not None:
         return None
-    if cfg.mesh_devices:
-        return mesh_mod.check_cells(cfg.mesh_devices)
+    topo = multihost.current_topology()
     dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None \
-            and torch.cuda.device_count() > 1:
-        return mesh_mod.local_devices()
-    return None
+    if cfg.mesh_devices:
+        cells = mesh_mod.check_cells(cfg.mesh_devices)
+    elif dev.type != "cuda" or dev.index is not None:
+        return None
+    elif topo.process_count > 1:
+        cells = mesh_mod.check_cells(multihost.rank_cells(
+            "cuda", topo, torch.cuda.device_count()))
+        if len(cells) == 1:
+            return None
+    elif torch.cuda.device_count() > 1:
+        cells = mesh_mod.local_devices()
+    else:
+        return None
+    if topo.process_count > 1 and cfg.build_exchange_dir:
+        raise ValueError("-exchange and a rank's in-process mesh exclude "
+                         "each other: the mesh builds every shard of its "
+                         "cells itself (pin one card with -device cuda:K "
+                         "to exchange shards)")
+    return cells
 
 
 @dataclasses.dataclass
 class LocalLayout:
     """An in-process mesh run's layout: for each usable text, its shard
     plan and its own LocalMesh over the cells (real_tpu re-meshes per
-    text), and the bytes the plans reserved on each device."""
+    text), the bytes the plans reserved on each device, and the rank of
+    the job that runs it (0 of 1 outside a job)."""
     cells: List[torch.device]
     texts: List[Tuple[int, plan.StreamShardPlan, mesh_mod.LocalMesh]]
     reserved_bytes: int
+    topo: multihost.HostTopology
 
     def tag(self) -> str:
-        """A checkpoint belongs to its cells and each text's grid."""
+        """A checkpoint belongs to its rank, its cells and each text's
+        grid."""
         grids = [(fi, m.n_dp, m.n_shard, p.shards)
                  for fi, p, m in self.texts]
-        return f"local{len(self.cells)}:{grids}-"
+        rank = (f"rank{self.topo.process_index}of"
+                f"{self.topo.process_count}." if self.topo.process_count > 1
+                else "")
+        return f"{rank}local{len(self.cells)}:{grids}-"
 
 
 def _local_layout(cfg: RealConfig, texts: List[TextFile],
@@ -686,7 +709,8 @@ def _local_layout(cfg: RealConfig, texts: List[TextFile],
         n_dp, n_shard = plan.choose_mesh_shape(len(cells), splan.shards)
         per_text.append((fi, splan,
                          mesh_mod.make_local_mesh(n_dp, n_shard, cells)))
-    return LocalLayout(cells, per_text, reserved)
+    return LocalLayout(cells, per_text, reserved,
+                       multihost.current_topology())
 
 
 def _foreach_shard_local(cfg: RealConfig, texts: List[TextFile],
@@ -745,6 +769,8 @@ def _foreach_shard_local(cfg: RealConfig, texts: List[TextFile],
             for k, v in counts.items():
                 tot[k] += v
     account["mesh"] = {
+        "rank": layout.topo.process_index,
+        "ranks": layout.topo.process_count,
         "n_dp": meshes[0].n_dp if meshes else 0,
         "n_shard": meshes[0].n_shard if meshes else 0,
         "devices": [str(d) for d in layout.cells],
@@ -1071,7 +1097,6 @@ def _make_exchange(cfg: RealConfig, depth: int, dev: torch.device):
     only: overflow reruns build their small shards locally."""
     if not cfg.build_exchange_dir or depth:
         return None
-    from real_tpu_torch.parallel import multihost
     topo = multihost.current_topology()
     if topo.process_count <= 1:
         return None

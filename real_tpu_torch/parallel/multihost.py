@@ -2,16 +2,24 @@
 real_tpu/parallel/multihost.py).
 
 The reference is strictly single-node. The port runs several processes
-("ranks") joined through torch.distributed, each on its own card while
-there are cards enough and several on one card past that:
+("ranks") joined through torch.distributed. real_tpu's design is that
+every process of a job drives a mesh of its own local devices over its
+read slice; here a rank drives the cards `rank_cells` gives it: a card of
+its own, several, or a card shared with other ranks past the card count:
 
 * `initialize` joins the job: an explicit init method (a `file://` store
   or `tcp://host:port`), world size and rank, or torchrun's RANK /
   WORLD_SIZE / MASTER_ADDR / MASTER_PORT. The backend is gloo: the ranks
   only meet, matching exchanges nothing between them, and NCCL refuses two
   ranks on one card. A plain single process stays a no-op.
-* Device: `rank_device` gives a rank asking for plain "cuda" its own card,
-  LOCAL_RANK under torchrun, else the rank modulo the card count.
+* Cards: `rank_cells` gives a rank asking for plain "cuda" its share of
+  its node's cards, interleaved by local rank (LOCAL_RANK and
+  LOCAL_WORLD_SIZE under torchrun). A share of one card is `rank_device`'s
+  card (modulo the card count, so ranks share cards once there are more
+  ranks than cards); a share of several is the rank's in-process dp x
+  shard mesh (engine/driver.py local_mesh_cells, real_tpu's
+  `jax.local_devices()` mesh per process), as is RealConfig.mesh_devices,
+  which names a rank's cells. A rank's local mesh with -exchange raises.
 * Input: each rank parses only its contiguous slice of the read file
   (`parse_host_slice` -> io/reads.parse_reads_sliced); the genome is
   parsed and packed by every rank.
@@ -32,8 +40,9 @@ there are cards enough and several on one card past that:
   is again the one-process file. -mesh with -exchange raises.
 
 `python -m real_tpu_torch.parallel.multihost` runs one rank of such a job
-through the CLI (`main`). tests/test_torch_multihost.py and
-tests/test_torch_mesh_ranks.py spawn real processes and hold the
+through the CLI (`main`, which parses the job's flags and calls
+`run_rank`). tests/test_torch_multihost.py, tests/test_torch_mesh_ranks.py
+and tests/test_torch_rank_local_mesh.py spawn real processes and hold the
 concatenation equal to the one-process file.
 """
 
@@ -109,6 +118,33 @@ def local_rank_count(topo: HostTopology, env=None) -> int:
     contiguously), else the whole job (one node)."""
     env = os.environ if env is None else env
     return int(env.get("LOCAL_WORLD_SIZE", topo.process_count))
+
+
+def rank_cells(device: str, topo: HostTopology, device_count: int,
+               env=None) -> List[str]:
+    """The cards this rank drives. Plain "cuda" in a job of several ranks
+    gives each of a node's L ranks (local_rank_count) b = cards // L of
+    them, interleaved: cuda:l, cuda:l + L, ... for local rank l, the first
+    being rank_device's card. With b <= 1 a rank keeps rank_device's one
+    card (shared modulo the count once ranks outnumber cards); cards past
+    b * L stay idle, which local rank 0 says on stderr. An explicit card,
+    the CPU and a single process keep what was asked for."""
+    if device != "cuda" or topo.process_count <= 1:
+        return [device]
+    env = os.environ if env is None else env
+    n_local = local_rank_count(topo, env)
+    share = device_count // max(n_local, 1)
+    if share <= 1:
+        return [rank_device(device, topo, device_count, env)]
+    local = int(env.get("LOCAL_RANK", topo.process_index))
+    if not 0 <= local < n_local:
+        raise ValueError(f"local rank {local} outside the node's {n_local} "
+                         "ranks (LOCAL_RANK, LOCAL_WORLD_SIZE)")
+    idle = device_count - share * n_local
+    if idle and local == 0:
+        print(f"{idle} of {device_count} cards stay idle: {n_local} ranks "
+              f"take {share} each", file=sys.stderr)
+    return [f"cuda:{local + i * n_local}" for i in range(share)]
 
 
 def host_read_slice(num_reads: int, topo: HostTopology) -> Tuple[int, int]:
@@ -230,49 +266,61 @@ def _rank_path(path: str, topo: HostTopology) -> str:
     return path if path in ("", "-") else f"{path}.{topo.process_index}"
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    """One rank of a multi-process run through the CLI: join the job
-    (-init_method / -world / -rank, or torchrun's environment), parse this
-    rank's slice of -p, match it and write the records to `<-o>.<rank>`
-    (and -metrics / -ckpt likewise per rank). `cat out.0 out.1 ...` is the
-    one-process output. -mesh runs the ranks as a mesh (module doc); its
-    conflicts raise before the rank joins the job."""
-    from real_tpu_torch.cli import main as cli
-    from real_tpu_torch.engine import driver
-    args = list(sys.argv[1:] if argv is None else argv)
-    job = {}
-    for flag in ("-init_method", "-world", "-rank"):
+@dataclasses.dataclass
+class Job:
+    """How a rank joins its job: an init method, the world size and this
+    rank; None where torchrun's environment says it (initialize)."""
+    init_method: Optional[str] = None
+    world: Optional[int] = None
+    rank: Optional[int] = None
+
+
+def parse_job(argv: List[str]) -> Tuple[Job, List[str]]:
+    """The job's flags (-init_method URL -world N -rank R) out of a rank's
+    command line, and the CLI flags left."""
+    args = list(argv)
+    job = Job()
+    for flag, attr, typ in (("-init_method", "init_method", str),
+                            ("-world", "world", int),
+                            ("-rank", "rank", int)):
         if flag in args:
             i = args.index(flag)
-            job[flag] = args[i + 1]
+            setattr(job, attr, typ(args[i + 1]))
             del args[i:i + 2]
-    use_mesh = "-mesh" in args
-    if use_mesh:
-        args.remove("-mesh")
-    if not args:
-        print(USAGE, file=sys.stderr)
-        return 1
-    cfg = cli.parse_args(args)
-    if use_mesh:
-        cfg.use_mesh = True
-        cfg.validate()                    # -mesh with -exchange raises
+    return job, args
+
+
+def run_rank(cfg, job: Job) -> int:
+    """One rank of a job: join it, take this rank's cards, parse this
+    rank's slice of -p (the whole file under -mesh, whose grid comes from
+    a plan over every read), match it and write the records to
+    `<-o>.<rank>` (and -metrics / -ckpt likewise per rank).
+    `cat out.0 out.1 ...` is the one-process output. With use_mesh None a
+    rank of several cells (cfg.mesh_devices, else rank_cells) drives them
+    as its in-process mesh (engine/driver.py local_mesh_cells); that
+    mesh with -exchange raises."""
+    from real_tpu_torch.cli import main as cli
+    from real_tpu_torch.engine import driver
+    cfg.validate()                        # -mesh with -exchange raises
     driver.resolve_device(cfg.device)     # no card: raise before joining
-    topo = initialize(job.get("-init_method"),
-                      int(job["-world"]) if "-world" in job else None,
-                      int(job["-rank"]) if "-rank" in job else None)
+    topo = initialize(job.init_method, job.world, job.rank)
     try:
-        device = driver.resolve_device(rank_device(
-            cfg.device, topo, torch.cuda.device_count()))
+        cells = driver.local_mesh_cells(cfg, cfg.device)
+        if cells:
+            cfg.mesh_devices = [str(c) for c in cells]
+            device = cells[0]
+        else:
+            device = driver.resolve_device(rank_device(
+                cfg.device, topo, torch.cuda.device_count()))
         if device.type == "cuda":
             torch.cuda.set_device(device)
         print(f"rank {topo.process_index} of {topo.process_count}: device "
-              f"{device}", file=sys.stderr)
+              f"{device}" + (f", cells {' '.join(cfg.mesh_devices)}"
+                             if cells else ""), file=sys.stderr)
         cfg.outputfilename = _rank_path(cfg.outputfilename, topo)
         cfg.metrics_json = _rank_path(cfg.metrics_json, topo)
         cfg.checkpoint = _rank_path(cfg.checkpoint, topo)
         if cfg.use_mesh:
-            # the whole file: the grid, and with it the row's slice, comes
-            # from a plan over every read (driver.plan_mesh)
             from real_tpu_torch.io import reads as reads_io
             rs = reads_io.parse_reads(cfg.patternfilename,
                                       cfg.quality_offset, cfg.native_host)
@@ -283,6 +331,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """One rank of a multi-process run through the CLI: the job's flags
+    (-init_method / -world / -rank, or torchrun's environment), -mesh and
+    the CLI's flags, then run_rank. -mesh runs the ranks as a mesh (module
+    doc); its conflicts raise before the rank joins the job."""
+    from real_tpu_torch.cli import main as cli
+    job, args = parse_job(sys.argv[1:] if argv is None else argv)
+    use_mesh = "-mesh" in args
+    if use_mesh:
+        args.remove("-mesh")
+    if not args:
+        print(USAGE, file=sys.stderr)
+        return 1
+    cfg = cli.parse_args(args)
+    if use_mesh:
+        cfg.use_mesh = True
+    return run_rank(cfg, job)
 
 
 if __name__ == "__main__":

@@ -467,14 +467,18 @@ def test_default_selects_a_mesh_of_every_card_only_when_it_should(
                                    "cpu") == [torch.device("cpu")] * 3
     with pytest.raises(ValueError, match="mesh_devices"):
         RealConfig(mesh_devices=["cpu"], use_mesh=False)
-    # a rank of a job never meshes in-process
+    # a job of one rank meshes as a single process does (a rank of a job
+    # of several drives its own cells: tests/test_torch_rank_local_mesh.py)
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
     try:
-        assert driver.local_mesh_cells(cfg, "cuda") is None
+        assert driver.local_mesh_cells(cfg, "cuda") \
+            == [torch.device("cuda", i) for i in range(4)]
         assert driver.local_mesh_cells(RealConfig(mesh_devices=CPU8),
-                                       "cpu") is None
+                                       "cpu") == [torch.device("cpu")] * 8
+        assert driver.local_mesh_cells(RealConfig(use_mesh=True),
+                                       "cuda") is None
     finally:
         dist.destroy_process_group()
 
