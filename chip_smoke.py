@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ranks N     # (i) and (j) alone, a card per
                                         # rank; (l) too on 2N cards or more
     python3 chip_smoke.py --cells       # (k)'s runs of a cell per card alone
+    python3 chip_smoke.py --grch        # phase (m) alone
 
 Drives the port's four paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates in its 32-bit
@@ -41,7 +42,16 @@ sharing the card (python -m real_tpu_torch.parallel.multihost -mesh),
 (k) the in-process mesh: the same paths as one process driving a grid of
 cells on the card (RealConfig.mesh_devices), and (l) ranks that each drive
 such a mesh over their read slice (real_tpu's multi-host design): two
-ranks sharing the card, two cells each (multihost.run_rank).
+ranks sharing the card, two cells each (multihost.run_rank); then the
+driver entry points of tools/graft_entry.py, and (m) the genome-scale
+path:
+
+  grch         benchmarks/scale.py "grch" (tools/gendata.py GRCH): a
+               3,100,000,000 bp random genome in one FASTA of 24
+               fragments (seed 55), 2,000,000 reads x 100 bp FASTA
+               (errprob 0.02, seed 56), k <= 5, matchUnique with scores;
+               nothing cut. The file splits into two sub-texts past 2^31
+               bases, and the planner shards them beyond the card
 
 With --ranks N it runs phases 1-2, the matchUnique data, phase (i) and the
 matchUnique -shards 2 mesh of (j) alone, as N ranks on N cards (one each;
@@ -50,8 +60,9 @@ cards it then runs (l)'s matchUnique -shards 2 and chr21 -shards 2 as N
 ranks, each meshing the cards multihost.rank_cells gives it (phase (i)
 pins a card per rank there). With --cells it runs phases 1-2,
 the matchUnique and chr21 paths on cuda:0 alone, then (k)'s runs of one
-cell per card and the CLI's default mesh of every card against them; it
-needs more than one card.
+cell per card and the CLI's default mesh of every card against them, and
+dryrun_multichip over every card; it needs more than one card. With
+--grch it runs phases 1-2 and (m) alone, then (m)'s kernel times.
 
 Phases:
 
@@ -122,10 +133,13 @@ Phases:
                 shard planned, records byte-identical to (a)'s, peak at or
                 under the budget. (d) (b) with -ckpt, stopped by an
                 exception from a hook on the match step after unit 1, then
-                run again: 1 unit skipped, (a)'s bytes. (e) -l 48 and -l 64
-                on the first 262,144 reads: launches of the 64-bit
-                probe_candidates entry > 0, truth share, and CPU parity
-                (plain host versions) on the first 2,048 reads
+                run again: 1 unit skipped, (a)'s bytes. (d2) (c) with -ckpt,
+                stopped after unit 1, then run under a -f of ~8 GB, which
+                plans another shard count: the checkpoint is ignored with
+                "fingerprint mismatch", no unit skipped, (a)'s bytes. (e)
+                -l 48 and -l 64 on the first 262,144 reads: launches of
+                the 64-bit probe_candidates entry > 0, truth share, and
+                CPU parity (plain host versions) on the first 2,048 reads
  10. flags    (f) chr21 (a) through the CLI with -R 0, -trace and
                 -metrics: records byte-identical to (a)'s; from the exported
                 Chrome trace, the union of the kernel, memcpy and memset
@@ -188,9 +202,36 @@ Phases:
                 card under its -f; each rank's wall_s and seconds from
                 start to exit beside (j)'s rank mesh and (k)'s in-process
                 mesh of the grid
- 11. gatherbench  the tool's JSON line at both table sizes; the kernel's
+ 11. graft      tools/graft_entry.py: entry()'s match step on cuda:0,
+                its state equal to the same step's on the CPU;
+                dryrun_multichip(1)
+ 12. grch       (m): host MemAvailable and free disk against what the
+                phase needs (raises when short); the data from
+                tools/gendata.py, timed; (m-a) python -m
+                real_tpu_torch.cli.main -u 1 -q 1 -k 5 -metrics in a
+                process of its own, nothing forced: two sub-texts, the
+                plan per sub-text (shards, build mode, bucket bits,
+                bisection steps), wall_s, reads/s and phase seconds, the
+                process's peak device bytes under the -f 0.75 budget and
+                its peak RSS, launches of gather_word_windows and
+                verify_windows > 0; the truth from gendata.read_truth:
+                reads with <= 2 seed and <= 5 mismatches reported unique
+                at their fragment, position and strand, >= 0.999 overall,
+                in sub-text #0 past base 2^30 and in sub-text #1; (m-b)
+                load_texts, run_match_unique and write_unique in this
+                process at the fewest -shards whose every unit skips
+                bisection with room in its deep-probe slots
+                (probe_route_shards): records byte-identical to (m-a)'s,
+                launches of probe_candidates and verify_windows > 0; then
+                on sub-text #0's last shard (past 2^30) of (m-a)'s plan
+                gather_word_windows (the bucket bounds) and
+                verify_windows, and of (m-b)'s probe_candidates, each
+                bit-exact against its plain version on a batch of the
+                reads of that shard, and one step's overflow share on
+                each shard and at the fewest bisection-free count
+ 13. gatherbench  the tool's JSON line at both table sizes; the kernel's
                 launches counted over each run
- 12. times      each kernel at each main-path shape: kernel, plain version
+ 14. times      each kernel at each main-path shape: kernel, plain version
                 and one torch yardstick (the chain of index_select calls
                 that fetches the same words for the three match-step
                 entries, take_sum for gather_rowsum), device time (CUDA
@@ -206,6 +247,7 @@ The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
@@ -253,6 +295,7 @@ CHR21 = PathCfg("chr21", 46_700_000, 2103, 1_000_000, 75, 2104, 4, 32768,
 WIDE_SEEDLS = (48, 64)
 WIDE_READS = 262_144
 CHR21_BUDGET_BYTES = 4e9     # run (c): fracmem x the card's memory
+CHR21_RESUME_BUDGET_BYTES = 8e9    # run (d2)'s resume: another plan
 ERRPROB = 0.02
 GATHERBENCH = dict(m=2_920_000, n=262_144, w=8)
 GATHER_SRC = "real_tpu_torch/csrc/gather_windows.cu"
@@ -1008,8 +1051,8 @@ def _require_same_records(tag, blob, blob_a):
 
 
 def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
-    """Runs (b), (c) and (d) of the chr21 path against run (a)'s records."""
-    from real_tpu_torch.engine import driver
+    """Runs (b), (c), (d) and (d2) of the chr21 path against run (a)'s
+    records."""
     from real_tpu_torch.ops import gather
     steps_per_unit = -(-pc.num_reads // pc.batch)
 
@@ -1049,9 +1092,59 @@ def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
                              f"budget of {CHR21_BUDGET_BYTES:.0f} B")
     _require_same_records("c", blob, blob_a)
 
+    shards_c = m["plans"][0]["shards"]
+
     # (d) (b) with a checkpoint, stopped after unit 1, then resumed
     ckpt = os.path.join(tmp, "chr21.ckpt")
     cfg_d = dataclasses.replace(cfg_b, checkpoint=ckpt)
+    steps = _stopped_after_unit(cfg_d, r, dev, steps_per_unit, "d")
+    size = os.path.getsize(ckpt)
+    _, _, res, blob, records, ph = run_once(cfg_d, r, dev)
+    m = res.metrics
+    log(f"[chr21] (d) stopped after unit 1 ({steps} steps, checkpoint "
+        f"of {size} B), resumed: {m['units_skipped']} unit skipped, "
+        f"{m['units_dispatched']} dispatched, {ph['total']:.3f}s "
+        f"({records} records)")
+    if m["units_skipped"] != 1 or m["units_dispatched"] != 2 \
+            or os.path.exists(ckpt):
+        raise AssertionError("chr21 (d): the resumed run did not skip "
+                             "exactly unit 1 or left its checkpoint")
+    _require_same_records("d", blob, blob_a)
+
+    # (d2) stopped after unit 1 under (c)'s plan, resumed under a -f that
+    # plans another shard count: the checkpoint is ignored, with a message
+    ckpt = os.path.join(tmp, "chr21_plan.ckpt")
+    _stopped_after_unit(dataclasses.replace(cfg, fracmem=fracmem,
+                                            checkpoint=ckpt), r, dev,
+                        steps_per_unit, "d2")
+    fracmem2 = CHR21_RESUME_BUDGET_BYTES / total
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        _, _, res, blob, records, ph = run_once(
+            dataclasses.replace(cfg, fracmem=fracmem2, checkpoint=ckpt), r,
+            dev)
+    m = res.metrics
+    mismatch = "fingerprint mismatch" in err.getvalue()
+    log(f"[chr21] (d2) stopped after unit 1 under -f {fracmem:.5f} "
+        f"({shards_c} shards), resumed under -f {fracmem2:.5f} "
+        f"({m['plans'][0]['shards']} shards): 'fingerprint mismatch' "
+        f"{'printed' if mismatch else 'NOT printed'}, {m['units_skipped']} "
+        f"units skipped, {m['units_dispatched']} dispatched, "
+        f"{ph['total']:.3f}s ({records} records)")
+    if m["plans"][0]["shards"] == shards_c:
+        raise AssertionError("chr21 (d2): the resumed run planned the same "
+                             "shard count")
+    if not mismatch or m["units_skipped"] != 0 or os.path.exists(ckpt):
+        raise AssertionError("chr21 (d2): the checkpoint of another plan "
+                             "was not ignored")
+    _require_same_records("d2", blob, blob_a)
+
+
+def _stopped_after_unit(cfg, r, dev, steps_per_unit, tag) -> int:
+    """A run stopped by an exception from a hook on the match step after
+    its first unit, with the checkpoint of that unit on disk; returns the
+    steps it ran."""
+    from real_tpu_torch.engine import driver
     real_step, calls = driver.match_step, [0]
 
     def stopping_step(*a, **kw):
@@ -1061,27 +1154,16 @@ def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
         return real_step(*a, **kw)
     driver.match_step = stopping_step
     try:
-        run_once(cfg_d, r, dev)
+        run_once(cfg, r, dev)
     except _StopAfterUnit:
         pass
     else:
-        raise AssertionError("chr21 (d): the hook did not stop the run")
+        raise AssertionError(f"chr21 ({tag}): the hook did not stop the run")
     finally:
         driver.match_step = real_step
-    if not os.path.exists(ckpt):
-        raise AssertionError("chr21 (d): no checkpoint after unit 1")
-    size = os.path.getsize(ckpt)
-    _, _, res, blob, records, ph = run_once(cfg_d, r, dev)
-    m = res.metrics
-    log(f"[chr21] (d) stopped after unit 1 ({calls[0] - 1} steps, checkpoint "
-        f"of {size} B), resumed: {m['units_skipped']} unit skipped, "
-        f"{m['units_dispatched']} dispatched, {ph['total']:.3f}s "
-        f"({records} records)")
-    if m["units_skipped"] != 1 or m["units_dispatched"] != 2 \
-            or os.path.exists(ckpt):
-        raise AssertionError("chr21 (d): the resumed run did not skip "
-                             "exactly unit 1 or left its checkpoint")
-    _require_same_records("d", blob, blob_a)
+    if not os.path.exists(cfg.checkpoint):
+        raise AssertionError(f"chr21 ({tag}): no checkpoint after unit 1")
+    return calls[0] - 1
 
 
 def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
@@ -1755,6 +1837,435 @@ def rank_local_phase(torch, runs, world, cells, tmp):
         rank_local_run(torch, tag, pc, g, r, shards, world, cells, want, tmp)
 
 
+def graft_phase(torch, cells=1):
+    """tools/graft_entry.py on the card: entry()'s match step on cuda:0
+    against the same step on the CPU (states equal), and
+    dryrun_multichip over `cells` cards."""
+    from real_tpu_torch.tools import graft_entry
+    t = time.perf_counter()
+    fn, args = graft_entry.entry("cuda:0")
+    state, _ = fn(*args)
+    fn_cpu, args_cpu = graft_entry.entry("cpu")
+    want, _ = fn_cpu(*args_cpu)
+    for f in state._fields:
+        if not torch.equal(getattr(state, f).cpu(), getattr(want, f)):
+            raise AssertionError(f"graft_entry.entry: {f} differs from the "
+                                 "CPU's step")
+    hits = int(((state.st == 1) | (state.st == 2)).sum())
+    graft_entry.dryrun_multichip(cells)
+    log(f"[graft] entry() on cuda:0: {hits} of {state.st.numel()} reads "
+        f"unique, state equal to the CPU's; dryrun_multichip({cells}) "
+        f"({time.perf_counter() - t:.1f}s)")
+
+
+# phase (m): the genome-scale path (tools/gendata.py GRCH)
+GRCH_READS = 2_000_000
+GRCH_TRUTH_FLOOR = 0.999
+GRCH_HIGH_BASE = 2**30      # real_tpu once overflowed past this base
+GRCH_DISK_BYTES = 4.5e9     # genome 3.15 GB, reads 0.22 GB, read store,
+                            # records
+GRCH_HOST_BYTES = 24e9      # (m-a)'s process at its peak, and this one's
+                            # reads and truth beside it
+GRCH_TIMEOUT_S = 900
+# the CLI as a user runs it, then its process's peak device bytes
+GRCH_CLI_CODE = (
+    "import json, sys, torch\n"
+    "from real_tpu_torch.cli import main as cli\n"
+    "rc = cli.main(sys.argv[2:])\n"
+    "with open(sys.argv[1], 'w') as f:\n"
+    "    json.dump(torch.cuda.max_memory_allocated(), f)\n"
+    "sys.exit(rc)\n")
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable line in /proc/meminfo")
+
+
+def grch_resources(tmp):
+    import shutil
+    avail, disk = _mem_available(), shutil.disk_usage(tmp).free
+    log(f"[grch] host MemAvailable {avail} B, free disk under {tmp} {disk} "
+        f"B; the phase needs {GRCH_HOST_BYTES:.0f} B of host memory and "
+        f"{GRCH_DISK_BYTES:.0f} B of disk")
+    if avail < GRCH_HOST_BYTES or disk < GRCH_DISK_BYTES:
+        raise AssertionError(
+            f"grch: not enough resources (MemAvailable {avail} B, free disk "
+            f"{disk} B; needs {GRCH_HOST_BYTES:.0f} and "
+            f"{GRCH_DISK_BYTES:.0f} B)")
+
+
+def grch_data(tmp):
+    """The genome (3.1 Gbp in 24 fragments) and the reads, timed."""
+    from real_tpu_torch.io import fasta
+    from real_tpu_torch.tools import gendata
+    G = gendata.GRCH
+    g, r = os.path.join(tmp, "genome.fa"), os.path.join(tmp, "reads.fa")
+    t = time.perf_counter()
+    gendata.write_random_genome(g, G.genome_n, seed=G.seed,
+                                num_fragments=G.fragments)
+    genome_s = time.perf_counter() - t
+    t = time.perf_counter()
+    codes, _ = fasta.parse_genome(g)
+    parse_s = time.perf_counter() - t
+    gendata.write_reads_fast(r, codes, GRCH_READS, G.patl, G.errprob,
+                             G.fastq, seed=G.seed + 1)
+    del codes
+    reads_s = time.perf_counter() - t
+    log(f"[grch] data: genome {G.genome_n} bp in {G.fragments} fragments "
+        f"(seed {G.seed}, {os.path.getsize(g)} B) in {genome_s:.1f}s; "
+        f"{GRCH_READS} reads x {G.patl} bp FASTA (errprob {G.errprob}, seed "
+        f"{G.seed + 1}, {os.path.getsize(r)} B) in {reads_s:.1f}s, of "
+        f"which parsing the genome {parse_s:.1f}s")
+    return g, r
+
+
+def _plan_line(p) -> str:
+    """One text's plan from the run's account (driver._plan_account)."""
+    w, b, st = p["windows"], p["bucket_bits"], p["bsearch_steps"]
+    return (f"{p['shards']} shard(s)"
+            + (" serial" if p["serial_build"] else " pipelined")
+            + f", windows per shard {min(w)}-{max(w)}, bucket bits "
+            f"{sorted(set(b))}, bsearch steps {sorted(set(st))}")
+
+
+def grch_cli_run(torch, g, r, tmp):
+    """(m-a): the CLI in a process of its own, nothing forced. Returns
+    (record bytes, metrics)."""
+    import threading
+    out, mfile = os.path.join(tmp, "out.txt"), os.path.join(tmp, "m.json")
+    peakf, logf = os.path.join(tmp, "peak.json"), os.path.join(tmp, "cli.log")
+    args = ["-t", g, "-p", r, "-o", out, "-u", "1", "-q", "1", "-k", "5",
+            "-metrics", mfile]
+    t = time.perf_counter()
+    with open(logf, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", GRCH_CLI_CODE, peakf, *args], cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO), stdout=f,
+            stderr=subprocess.STDOUT)
+    timer = threading.Timer(GRCH_TIMEOUT_S, proc.kill)
+    timer.start()
+    try:
+        # wait4: this child's own resource use (its peak RSS)
+        _, status, usage = os.wait4(proc.pid, 0)
+    finally:
+        timer.cancel()
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    secs = time.perf_counter() - t
+    if proc.returncode != 0:
+        with open(logf, "rb") as f:
+            raise AssertionError(f"grch (m-a): exit {proc.returncode}:\n"
+                                 + f.read().decode()[-3000:])
+    with open(mfile) as f:
+        m = json.load(f)
+    with open(peakf) as f:
+        peak = json.load(f)
+    total = torch.cuda.mem_get_info()[1]
+    budget = 0.75 * total
+    k = m["kernel_launches"]
+    log(f"[grch] (m-a) python -m real_tpu_torch.cli.main {' '.join(args)}: "
+        f"{secs:.1f}s start to exit; wall_s {m['wall_s']}, reads_per_sec "
+        f"{m['reads_per_sec']}; phases: " + " ".join(
+            f"{key}={v}s" for key, v in m["phase_s"].items()))
+    for fi, p in enumerate(m["plans"]):
+        log(f"[grch] (m-a) sub-text #{fi}: {_plan_line(p)}")
+    log(f"[grch] (m-a) units {m['units']} (dispatched "
+        f"{m['units_dispatched']}), reads "
+        f"{'resident' if m['source_resident'] else 'streamed'}, planner "
+        f"reserved {m['reserved_bytes']} B; peak device memory {peak} B "
+        f"against the -f 0.75 budget of {budget:.0f} B (card {total} B); "
+        f"host peak RSS {usage.ru_maxrss * 1024} B; launches "
+        f"gather_word_windows {k['gather_word_windows']}, verify_windows "
+        f"{k['verify_windows']}, probe_candidates {k['probe_candidates']}; "
+        f"overflow_rerun_reads {m['overflow_rerun_reads']}")
+    if len(m["plans"]) != 2:
+        raise AssertionError(f"grch: {len(m['plans'])} texts, not the two "
+                             "sub-texts of the split")
+    if k["gather_word_windows"] <= 0 or k["verify_windows"] <= 0:
+        raise AssertionError("grch (m-a): a K1 entry of the bisection route "
+                             "made no launch")
+    if peak > budget:
+        raise AssertionError(f"grch (m-a): peak {peak} B over the budget "
+                             f"of {budget:.0f} B")
+    with open(out, "rb") as f:
+        return f.read(), m
+
+
+def grch_truth(blob):
+    """Truth of (m-a)'s records from gendata.read_truth: among reads with
+    <= 2 mismatches in the seed and <= 5 in all (and inside one fragment),
+    the share reported unique at their true fragment, position and
+    strand, overall, in sub-text #0 past base 2^30, and in sub-text #1."""
+    from real_tpu_torch.engine import driver
+    from real_tpu_torch.tools import gendata
+    G = gendata.GRCH
+    n = GRCH_READS
+    got_frag = np.full(n, -1, np.int64)
+    got_pos = np.zeros(n, np.int64)
+    got_inv = np.zeros(n, bool)
+    for line in blob.splitlines():
+        f = line.split(b"\t")        # id seq score 1 a patl +/- frag pos
+        i = int(f[0][1:])
+        got_frag[i] = int(f[7].split(b"_")[1])
+        got_pos[i] = int(f[8])
+        got_inv[i] = f[6] == b"-"
+    start, inv, seedk, totalk = (np.concatenate(c) for c in zip(
+        *gendata.read_truth(G.genome_n, n, G.patl, G.errprob, G.seed + 1)))
+    per = G.genome_n // G.fragments
+    frag = np.minimum(start // per, G.fragments - 1)
+    frag_end = np.where(frag == G.fragments - 1, G.genome_n, (frag + 1) * per)
+    sel = (seedk <= 2) & (totalk <= 5) & (start + G.patl <= frag_end)
+    ok = (got_frag == frag) & (got_pos == start - frag * per + 1) \
+        & (got_inv == inv)
+    # sub-text #1 starts at the first fragment past the split limit
+    split = driver.TEXT_SPLIT_LIMIT // per * per
+    shares = {}
+    for name, region in (("all", sel),
+                         ("sub-text #0 past the high base",
+                          sel & (start >= GRCH_HIGH_BASE) & (start < split)),
+                         ("sub-text #1", sel & (start >= split))):
+        if not region.any():
+            raise AssertionError(f"grch truth {name}: no read")
+        shares[name] = float(ok[region].mean())
+        log(f"[grch] truth {name}: {int(ok[region].sum())} of "
+            f"{int(region.sum())} reads = {shares[name]:.6f}")
+    log(f"[grch] truth: {int((got_frag >= 0).sum())} reads reported unique "
+        f"of {n}; {int(sel.sum())} within the limits, "
+        f"{int((start + G.patl > frag_end).sum())} across a fragment end")
+    for name, share in shares.items():
+        if share < GRCH_TRUTH_FLOOR:
+            raise AssertionError(f"grch truth {name}: {share} below "
+                                 f"{GRCH_TRUTH_FLOOR}")
+    return start, inv
+
+
+def probe_route_shards(cfg, texts, reads):
+    """(the fewest -shards at which no unit of any text bisects, the fewest
+    at or past it at which, besides, a full batch's probes of deep buckets
+    are expected to take at most half of find_survivors' D = B / 2 slots).
+
+    A unit without bisection takes K1 = 4 lanes per probe from its bucket;
+    a probe whose bucket holds more (Poisson at the shard's occupancy)
+    needs one of D slots, and a read whose deep probe finds none
+    overflows and is rerun with 16x caps in 512-row batches through every
+    unit. At an occupancy near 2, 5% of a batch's 12 B probes are deep,
+    more than the B / 2 slots."""
+    import math
+    from real_tpu_torch.engine import driver
+    from real_tpu_torch.index.build import pick_bucket_bits
+    k1 = min(cfg.cand_cap, 4)
+
+    def units(k):
+        for tf in texts:
+            for s, e in driver._shard_bounds(tf.packed.n - cfg.seedl + 1, k):
+                b = pick_bucket_bits(cfg.seedl, e - s, reads,
+                                     cap=driver.BUCKET_BITS_CAP)
+                yield e - s, b
+
+    def deep_share(occ):
+        return 1 - math.exp(-occ) * sum(occ ** j / math.factorial(j)
+                                        for j in range(k1 + 1))
+    nobis = next(k for k in range(1, 4096) if all(
+        driver._bsearch_steps_static(w, cfg.cand_cap, b) == 0
+        for w, b in units(k)))
+    fit = next(k for k in range(nobis, 4096) if all(
+        driver._bsearch_steps_static(w, cfg.cand_cap, b) == 0
+        and deep_share(w / 2**b) * 12 <= 0.25 for w, b in units(k)))
+    return nobis, fit
+
+
+def grch_overflow_share(torch, cfg, index, text, codes, steps) -> float:
+    """Share of a batch of reads that find_survivors flags as overflowing
+    on one shard: the reads the driver reruns with 16x caps."""
+    from real_tpu_torch.engine.matchstep import find_survivors
+    surv, _ = find_survivors(
+        index.sig, index.pos, index.bb, text.words, text.nbits, text.ncum,
+        text.frag_offsets, codes,
+        torch.ones(codes.shape[0], dtype=torch.bool, device=codes.device),
+        seedl=cfg.seedl, seedkmax=cfg.seedkmax, totalkmax=cfg.totalkmax,
+        cand_cap=cfg.cand_cap, survivor_cap=cfg.survivor_cap,
+        bsearch_steps=steps, text_has_n=text.has_n)
+    return float(surv.overflow.float().mean())
+
+
+def _shard_reads(torch, rs, start, inv, lo, hi, dev, n=32768):
+    """The first n reads whose true window lies in [lo, hi): (codes [n,
+    patl] uint8, true start [n], strand [n]) on `dev`."""
+    sel = np.flatnonzero((start >= lo) & (start < hi))[:n]
+    codes = rs.codes_flat.reshape(rs.num_reads, -1)[sel]
+    return (torch.from_numpy(np.ascontiguousarray(codes)).to(dev),
+            start[sel], inv[sel])
+
+
+def grch_kernel_inputs(torch, text, index, rs, start, inv, lo, hi, dev,
+                       tag, rng):
+    """(sites, reads, fused) of K1's entries on one shard of grch's own
+    tables, for a batch of the reads whose true window lies in it: the
+    bucket-bound fetch of its bisection route (gather_word_windows, w =
+    2), probe_candidates at its batch shape, and verify_windows with each
+    read's true window in lane 0 and 7 windows of the shard beside it."""
+    from real_tpu_torch.engine.matchstep import (compute_probes,
+                                                 pack_read_words)
+    from real_tpu_torch.index.signatures import SigConfig
+    codes, tstart, tinv = _shard_reads(torch, rs, start, inv, lo, hi, dev)
+    B, patl = codes.shape
+    probe = compute_probes(codes, index.seedl)
+    sc = SigConfig(index.seedl)
+    nbuck = index.bb.shape[0] // 6
+    lists = torch.arange(6, dtype=torch.int64, device=dev)
+    by_list = probe.T.reshape(2, 6, B).permute(1, 0, 2).reshape(6, 2 * B)
+    bidx = (sc.bucket_key_bits(by_list, index.bucket_bits)
+            + (lists * nbuck)[:, None]).to(torch.int32)
+    pos = rng.integers(lo, hi - patl, (B, 8))
+    pos[:, 0] = tstart
+    lane_inv = rng.random((B, 8)) < 0.5
+    lane_inv[:, 0] = tinv
+    words_s, words_r = pack_read_words(codes)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    shift = sc.bucket_shift_bits(index.bucket_bits)
+    return ([(f"{tag}/b_bucket_bounds", index.bb, bidx, 2)],
+            codes,
+            [(f"{tag}/probe_candidates",
+              (index.sig, index.bb, probe, valid, shift, 4)),
+             (f"{tag}/verify_windows",
+              (text.words, torch.from_numpy(pos).to(dev),
+               torch.from_numpy(lane_inv).to(dev), words_s, words_r, patl,
+               index.seedl))])
+
+
+def grch_phase(torch, dev):
+    """Phase (m): the genome-scale path. Returns the K1 sites and fused
+    cases on grch's own tables, their errors and outputs, and the launches
+    of each route, for the times phase."""
+    from real_tpu_torch.cli.output import write_unique
+    from real_tpu_torch.config import RealConfig
+    from real_tpu_torch.engine import driver
+    from real_tpu_torch.io import reads as reads_io
+    from real_tpu_torch.ops import gather
+    from real_tpu_torch.parallel.plan import StreamShardPlan
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grch_") as tmp:
+        grch_resources(tmp)
+        g, r = grch_data(tmp)
+        log(f"[grch] card free before (m-a): {torch.cuda.mem_get_info()[0]} "
+            "B")
+        blob_a, m_a = grch_cli_run(torch, g, r, tmp)
+        start, inv = grch_truth(blob_a)
+
+        # (m-b) in-process: every unit bisection-free (probe_candidates)
+        cfg = RealConfig(textfilename=g, patternfilename=r,
+                         outputfilename="-", totalkmax=5)
+        t = time.perf_counter()
+        texts = driver.load_texts(cfg, dev)
+        load_s = time.perf_counter() - t
+        nobis, shards = probe_route_shards(cfg, texts, GRCH_READS)
+        log(f"[grch] (m-b) -shards {nobis} is the fewest at which no unit "
+            f"bisects; -shards {shards} the fewest at which, besides, the "
+            "deep probes of a batch are expected to fill at most half of "
+            "their slots")
+        cfg_b = dataclasses.replace(cfg, index_shards=shards)
+        t = time.perf_counter()
+        rs = reads_io.parse_reads(r)
+        parse_s = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gather.reset_launch_counts()
+        t = time.perf_counter()
+        res = driver.run_match_unique(cfg_b, rs, texts, dev)
+        torch.cuda.synchronize()
+        match_s = time.perf_counter() - t
+        launches_b = gather.launch_counts()
+        peak_b = torch.cuda.max_memory_allocated() - base
+        t = time.perf_counter()
+        buf = io.BytesIO()
+        write_unique(buf, rs, res, texts, cfg.scores)
+        out_s = time.perf_counter() - t
+        m = res.metrics
+        log(f"[grch] (m-b) load_texts {load_s:.1f}s, parse_reads "
+            f"{parse_s:.1f}s, run_match_unique -shards {shards} "
+            f"{match_s:.1f}s ({m['units_dispatched']} units), write_unique "
+            f"{out_s:.1f}s; match phases: " + " ".join(
+                f"{k}={v:.3f}s" for k, v in m["phase_s"].items()))
+        for fi, p in enumerate(m["plans"]):
+            log(f"[grch] (m-b) sub-text #{fi}: {_plan_line(p)}")
+        log(f"[grch] (m-b) peak device memory {peak_b} B over the texts; "
+            f"launches {launches_b}; overflow_rerun_reads "
+            f"{m['overflow_rerun_reads']}")
+        if buf.getvalue() != blob_a:
+            raise AssertionError("grch (m-b): records differ from (m-a)'s")
+        if launches_b["probe_candidates"] <= 0 \
+                or launches_b["verify_windows"] <= 0:
+            raise AssertionError("grch (m-b): a K1 entry of the probe route "
+                                 "made no launch")
+        if any(s for p in m["plans"] for s in p["bsearch_steps"]):
+            raise AssertionError("grch (m-b): a unit bisects")
+        records = blob_a.count(b"\n")
+        log(f"[grch] (m-a) and (m-b) records byte-identical ({records} "
+            "records)")
+        del res, buf, blob_a
+
+        # K1 on grch's tables: sub-text #0's last shard, past the high
+        # base, of (m-a)'s plan, of (m-b)'s and of -shards nobis
+        text = texts[0].packed
+        nw = text.n - cfg.seedl + 1
+        rng = np.random.default_rng(57)
+        sites, fused = [], []
+        for tag, shards_k, p in (("grch", m_a["plans"][0]["shards"],
+                                  m_a["plans"][0]),
+                                 ("grch_m_b", shards, None),
+                                 ("grch_nobis", nobis, None)):
+            lo, hi = driver._shard_bounds(nw, shards_k)[-1]
+            splan = StreamShardPlan(shards_k, False, driver.BUCKET_BITS_CAP)
+            if p is not None:
+                splan = StreamShardPlan(p["shards"], p["serial_build"],
+                                        p["bucket_bits_cap"])
+            t = time.perf_counter()
+            index = driver._build(cfg, text, lo, hi - lo, GRCH_READS, splan)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            if lo < GRCH_HIGH_BASE:
+                raise AssertionError(f"{tag}: the last shard starts below "
+                                     f"base {GRCH_HIGH_BASE}")
+            s_sites, codes, s_fused = grch_kernel_inputs(
+                torch, text, index, rs, start, inv, lo, hi, dev, tag, rng)
+            steps = driver._bsearch_steps_static(hi - lo, cfg.cand_cap,
+                                                 index.bucket_bits)
+            over = grch_overflow_share(torch, cfg, index, text, codes, steps)
+            log(f"[grch] {tag}: sub-text #0's last shard of {shards_k}, "
+                f"windows [{lo}, {hi}) ({hi - lo} windows, bucket bits "
+                f"{index.bucket_bits}, bsearch {steps}) built in "
+                f"{build_s:.2f}s; one step on {codes.shape[0]} of its reads: "
+                f"overflow share {over:.5f}")
+            if tag == "grch":       # the bisection route's entries
+                sites += s_sites
+                fused.append(s_fused[1])
+            elif tag == "grch_m_b":     # the probe route's
+                fused.append(s_fused[0])
+            del index, s_sites, s_fused, codes
+            gc.collect()
+        errs = gather_kernel_phase(torch, sites, dev)
+        ferrs, fouts = fused_kernel_phase(torch, fused, {"grch": 5,
+                                                         "grch_m_b": 5}, dev)
+    k_a = m_a["kernel_launches"]
+    launches = {"grch": {"gather_windows": k_a["gather_word_windows"],
+                         "verify_windows": k_a["verify_windows"],
+                         "probe_candidates": k_a["probe_candidates"]},
+                "grch_m_b": {"gather_windows":
+                             launches_b["gather_word_windows"],
+                             "verify_windows": launches_b["verify_windows"],
+                             "probe_candidates":
+                             launches_b["probe_candidates"]}}
+    log(f"[grch] phase (m) {time.perf_counter() - t_phase:.1f}s")
+    return sites, errs, fused, ferrs, fouts, launches
+
+
 def gatherbench_phase(big_m):
     """The tool's JSON line at both table sizes; kernel launches counted
     over each run."""
@@ -2031,13 +2542,24 @@ def drive(torch, dev) -> list:
              blobs_w[48]),
         ], 2, one * 2, tmp)
         del blob_u, blob_a, blob_c, blobs_w
+        graft_phase(torch)
 
-        rlaunches = gatherbench_phase(big_table.numel())
-        return times_phase(
-            torch, sites, errs, fused, ferrs, fouts,
-            {unique.name: launches_u, yeast.name: launches_a,
-             chr21.name: launches_c, **launches_w},
-            rcases, rerrs, rlaunches)
+    g_sites, g_errs, g_fused, g_ferrs, g_fouts, launches_g = grch_phase(
+        torch, dev)
+    rlaunches = gatherbench_phase(big_table.numel())
+    return times_phase(
+        torch, sites + g_sites, {**errs, **g_errs}, fused + g_fused,
+        {**ferrs, **g_ferrs}, {**fouts, **g_fouts},
+        {unique.name: launches_u, yeast.name: launches_a,
+         chr21.name: launches_c, **launches_w, **launches_g},
+        rcases, rerrs, rlaunches)
+
+
+def grch_only(torch, dev) -> list:
+    """--grch: phase (m) alone, then its kernels' times."""
+    sites, errs, fused, ferrs, fouts, launches = grch_phase(torch, dev)
+    return times_phase(torch, sites, errs, fused, ferrs, fouts, launches,
+                       [], {}, {})
 
 
 def _card_cell_runs(torch, unique, gu, ru, blob_u, chr21, gc21, rc, blob_c):
@@ -2075,6 +2597,7 @@ def cells_only(torch) -> None:
         local_mesh_phase(torch, [], _card_cell_runs(
             torch, UNIQUE, gu, ru, blobs[UNIQUE.name], CHR21, gc21, rc,
             blobs[CHR21.name]), tmp)
+    graft_phase(torch, torch.cuda.device_count())
 
 
 def ranks_only(torch, world: int) -> None:
@@ -2132,8 +2655,9 @@ def main() -> int:
         return 0
     # plain cuda meshes every card of a machine of several (phase (k)
     # drives that mesh); the phases before it then pin the first card
-    kernels = drive(torch, "cuda" if torch.cuda.device_count() == 1
-                    else "cuda:0")
+    dev = "cuda" if torch.cuda.device_count() == 1 else "cuda:0"
+    kernels = grch_only(torch, dev) if "--grch" in sys.argv \
+        else drive(torch, dev)
     log("kernels: gather_windows, probe_candidates (32-bit and 64-bit "
         "entries), verify_windows, gather_rowsum")
     log(f"[done] {time.perf_counter() - t_all:.1f}s")

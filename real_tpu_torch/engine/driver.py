@@ -165,18 +165,18 @@ def load_texts(cfg: RealConfig, device="cuda",
 
 
 def _bsearch_steps_static(num_windows: int, cand_cap: int,
-                          bucket_bits: int, extra: int = 0) -> int:
+                          bucket_bits: int) -> int:
     """In-bucket binary-search depth for find_survivors, chosen on the
     host from the shard's window count and bucket width (real_tpu's rule).
     0 = the bucket range is the candidate range (two-tier lane path);
     escalated caps always bisect. An unconverged bisection only
     over-approximates its range, which at worst raises an overflow."""
     occ = num_windows / float(1 << bucket_bits)
-    if extra == 0 and cand_cap <= 16 and occ <= 2.0 * max(cand_cap / 8.0, 1.0):
+    if cand_cap <= 16 and occ <= 2.0 * max(cand_cap / 8.0, 1.0):
         return 0
     occ = max(8.0 * max(occ, 1.0), float(2 * cand_cap))
     steps = int(np.ceil(np.log2(occ + 1)))
-    return min(-(-steps // 4) * 4 + extra, 30)
+    return min(-(-steps // 4) * 4, 30)
 
 
 def _build(cfg: RealConfig, text: PackedText, start: int, num_windows: int,
@@ -391,35 +391,30 @@ class _DispatchWindow:
             _wait_events(self.cfg, self._window.pop(0), "dispatch window")
 
 
-def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
-                       dev: torch.device, cand_cap: int, visit,
-                       prog: _Progress, *, skip_units: int = 0,
-                       extra_steps: int = 0,
-                       index_cache: Optional[Dict] = None, reads: int = 0,
-                       extra_reserved: int = 0,
-                       streaming: bool = False,
-                       exchange=None) -> Dict[str, object]:
-    """The outer loop: for each usable text and each of its index shards,
-    call visit(fi, text, index, bsearch_steps). The first skip_units
-    (file, shard) units are skipped entirely (checkpoint resume) — their
-    index builds never run. Returns the loop's account of itself.
+@dataclasses.dataclass
+class SeqLayout:
+    """A one-device run's layout: for each usable text, its shard bounds
+    and shard plan, and the bytes the plans reserved. The run's checkpoint
+    is keyed by it (tag): units are counted in this layout, so a
+    checkpoint of another plan would skip other windows."""
+    texts: List[Tuple[int, PackedText, List[Tuple[int, int]],
+                      plan.StreamShardPlan]]
+    reserved_bytes: int
 
-    exchange (a multihost.BuildExchange): every rank takes rank 0's plan
-    (its read slice, and so its budget, may differ from the others'),
-    builds and publishes the units it owns, then loads every unit, its own
-    included, from the exchange.
+    def tag(self) -> str:
+        """A checkpoint belongs to each text's shard count and build
+        mode."""
+        return "seq:" + str([(fi, sp.shards, sp.serial_build)
+                             for fi, _, _, sp in self.texts]) + "-"
 
-    Every text is planned against ALL resident texts' bytes plus
-    extra_reserved (resident reads, the step's workspace). visit returns
-    the events recorded after its last dispatch (none on the CPU); at most 2
-    units are kept in flight, and 1 under a serial_build plan, which also
-    drops the previous unit's lists BEFORE the next build so that the peak
-    is one build and not lists plus a build.
 
-    index_cache: a SINGLE-unit run parks its built index there so the
-    overflow rerun (driver recursion) reuses it instead of re-sorting.
-    Multi-unit runs never cache: extra shards held alive through the pass
-    loop are what the plan did not budget for."""
+def _seq_layout(cfg: RealConfig, texts: List[TextFile], dev: torch.device,
+                *, reads: int = 0, extra_reserved: int = 0,
+                streaming: bool = False, exchange=None) -> SeqLayout:
+    """Plan every usable text against ALL resident texts' bytes plus
+    extra_reserved (resident reads, the step's workspace). With an
+    exchange (a multihost.BuildExchange) every rank takes rank 0's plan:
+    its read slice, and so its budget, may differ from the others'."""
     usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
               if _text_usable(cfg, tf)]
     reserved = sum(_text_bytes(t) for _, t in usable) + extra_reserved
@@ -435,10 +430,53 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
         per_text = [(fi, texts_by_fi[fi], bounds, splan)
                     for fi, bounds, splan in exchange.agree(
                         [(fi, b, sp) for fi, _, b, sp in per_text])]
+    return SeqLayout(per_text, int(reserved))
+
+
+def _plan_account(cfg: RealConfig, splan: plan.StreamShardPlan,
+                  bounds: List[Tuple[int, int]], reads: int,
+                  cand_cap: int) -> Dict[str, object]:
+    """A text's shard plan with, for each of its shards, the windows, the
+    bucket width (_build's) and the in-bucket bisection depth."""
+    windows = [e - s for s, e in bounds]
+    bbits = [pick_bucket_bits(cfg.seedl, w, reads, cap=splan.bucket_bits_cap)
+             for w in windows]
+    return dict(dataclasses.asdict(splan), windows=windows,
+                bucket_bits=bbits,
+                bsearch_steps=[_bsearch_steps_static(w, cand_cap, b)
+                               for w, b in zip(windows, bbits)])
+
+
+def _foreach_shard_seq(cfg: RealConfig, layout: SeqLayout, cand_cap: int,
+                       visit, prog: _Progress, *, skip_units: int = 0,
+                       index_cache: Optional[Dict] = None, reads: int = 0,
+                       exchange=None) -> Dict[str, object]:
+    """The outer loop: for each text and each of its index shards in
+    `layout`, call visit(fi, text, index, bsearch_steps). The first
+    skip_units (file, shard) units are skipped entirely (checkpoint
+    resume) — their index builds never run. Returns the loop's account of
+    itself.
+
+    exchange (the BuildExchange the layout was agreed through): every
+    rank builds and publishes the units it owns, then loads every unit,
+    its own included, from the exchange.
+
+    visit returns the events recorded after its last dispatch (none on
+    the CPU); at most 2 units are kept in flight, and 1 under a
+    serial_build plan, which also drops the previous unit's lists BEFORE
+    the next build so that the peak is one build and not lists plus a
+    build.
+
+    index_cache: a SINGLE-unit run parks its built index there so the
+    overflow rerun (driver recursion) reuses it instead of re-sorting.
+    Multi-unit runs never cache: extra shards held alive through the pass
+    loop are what the plan did not budget for."""
+    per_text = layout.texts
     total_units = sum(len(b) for _, _, b, _ in per_text)
     account = {"units": total_units, "units_skipped": 0,
-               "units_dispatched": 0, "reserved_bytes": int(reserved),
-               "plans": [dataclasses.asdict(sp) for _, _, _, sp in per_text]}
+               "units_dispatched": 0, "reserved_bytes": layout.reserved_bytes,
+               "plans": [_plan_account(cfg, sp, bounds, reads, cand_cap)
+                         for _, _, bounds, sp in per_text]}
     if exchange is not None:
         u = 0
         with prog.phase("index_build"):
@@ -475,8 +513,7 @@ def _foreach_shard_seq(cfg: RealConfig, texts: List[TextFile],
                     index = _build(cfg, text, s, e - s, reads, splan)
                 if index_cache is not None and total_units == 1:
                     index_cache[ck] = index
-            steps = _bsearch_steps_static(e - s, cand_cap, index.bucket_bits,
-                                          extra_steps)
+            steps = _bsearch_steps_static(e - s, cand_cap, index.bucket_bits)
             prog.event(f"file {fi}: index shard {si + 1}/{len(bounds)} "
                        f"dispatched ({e - s} windows, bsearch={steps}, "
                        f"bbits={index.bucket_bits})")
@@ -931,6 +968,13 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
     plans = source.plans
     layout = None if cells is None else _local_layout(
         cfg, texts, cells, source, numpat, survivor_cap)
+    exchange = seq = None
+    if mesh is None and layout is None:
+        exchange = _make_exchange(cfg, _depth, dev)
+        seq = _seq_layout(cfg, texts, dev, reads=numpat,
+                          extra_reserved=source.resident_device_bytes
+                          + _step_workspace_bytes(plans, survivor_cap),
+                          streaming=not source.resident, exchange=exchange)
     rows = _RowStates(plans, [cells[0] if cells else dev])
 
     # checkpoint/resume: per-batch MatchState + overflow + completed-unit
@@ -940,9 +984,10 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
     skip_units = 0
     unit_done = [0]
     if cfg.checkpoint and _depth == 0 and patid_filter is None:
-        ck = ckpt_mod.Checkpoint(cfg.checkpoint, _mesh_tag(mesh_plan, layout)
-                                 + ckpt_mod.fingerprint(
-            cfg, texts, numpat, len(plans), cand_cap, survivor_cap))
+        ck = ckpt_mod.Checkpoint(
+            cfg.checkpoint, _layout_tag(mesh_plan, layout, seq)
+            + ckpt_mod.fingerprint(cfg, texts, numpat, len(plans), cand_cap,
+                                   survivor_cap))
         data = _load_checkpoint(ck, mesh)
         if data:
             skip_units = unit_done[0] = data["units_done"]
@@ -1006,12 +1051,8 @@ def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
                                        reads=numpat)
     else:
         account = _foreach_shard_seq(
-            cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
-            index_cache=_index_cache, reads=numpat,
-            extra_reserved=source.resident_device_bytes
-            + _step_workspace_bytes(plans, survivor_cap),
-            streaming=not source.resident,
-            exchange=_make_exchange(cfg, _depth, dev))
+            cfg, seq, cand_cap, visit, prog, skip_units=skip_units,
+            index_cache=_index_cache, reads=numpat, exchange=exchange)
 
     # the match loop only dispatches; its device work completes here
     with prog.phase("drain"):
@@ -1068,11 +1109,15 @@ def _mesh_of(cfg: RealConfig,
     return mesh_plan.mesh if mesh_plan is not None else None
 
 
-def _mesh_tag(mesh_plan: Optional[MeshPlan],
-              layout: Optional[LocalLayout] = None) -> str:
-    """A mesh run's checkpoint belongs to its grid and pass layout."""
+def _layout_tag(mesh_plan: Optional[MeshPlan],
+                layout: Optional[LocalLayout] = None,
+                seq: Optional[SeqLayout] = None) -> str:
+    """A checkpoint belongs to its run's layout: a mesh run's grid and
+    pass layout, a one-device run's shard plan."""
     if layout is not None:
         return layout.tag()
+    if seq is not None:
+        return seq.tag()
     if mesh_plan is None:
         return ""
     m = mesh_plan.mesh
@@ -1374,6 +1419,14 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
         source = _make_source(cfg, rs, patid_filter, _depth, dev, cells)
     layout = None if cells is None else _local_layout(
         cfg, texts, cells, source, rs.num_reads, survivor_cap)
+    exchange = seq = None
+    if mesh is None and layout is None:
+        exchange = _make_exchange(cfg, _depth, dev)
+        seq = _seq_layout(cfg, texts, dev, reads=rs.num_reads,
+                          extra_reserved=source.resident_device_bytes
+                          + _step_workspace_bytes(source.plans,
+                                                  survivor_cap),
+                          streaming=not source.resident, exchange=exchange)
     overflow = np.zeros(rs.num_reads, bool)
     acc = _HitAccumulator()
     pending: List[tuple] = []
@@ -1392,7 +1445,7 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     unit_done = [0]
     if cfg.checkpoint and _depth == 0 and patid_filter is None:
         ck = ckpt_mod.AllCheckpoint(
-            cfg.checkpoint, "all-" + _mesh_tag(mesh_plan, layout)
+            cfg.checkpoint, "all-" + _layout_tag(mesh_plan, layout, seq)
             + ckpt_mod.fingerprint(cfg, texts, rs.num_reads,
                                    len(source.plans), cand_cap,
                                    survivor_cap))
@@ -1465,12 +1518,8 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
                                        reads=rs.num_reads)
     else:
         account = _foreach_shard_seq(
-            cfg, texts, dev, cand_cap, visit, prog, skip_units=skip_units,
-            index_cache=_index_cache, reads=rs.num_reads,
-            extra_reserved=source.resident_device_bytes
-            + _step_workspace_bytes(source.plans, survivor_cap),
-            streaming=not source.resident,
-            exchange=_make_exchange(cfg, _depth, dev))
+            cfg, seq, cand_cap, visit, prog, skip_units=skip_units,
+            index_cache=_index_cache, reads=rs.num_reads, exchange=exchange)
 
     with prog.phase("drain"):
         drain(0)

@@ -37,9 +37,10 @@ def inputs(tmp_path_factory):
 
 
 def _cfg(g, r, ckpt="", unique=True, **kw):
+    kw.setdefault("index_shards", 3)
     return RealConfig(textfilename=g, patternfilename=r, outputfilename="-",
-                      index_shards=3, batch_size=128, checkpoint=ckpt,
-                      match_unique=unique, **kw)
+                      batch_size=128, checkpoint=ckpt, match_unique=unique,
+                      **kw)
 
 
 def _run(cfg, rs, texts):
@@ -100,6 +101,115 @@ def test_resume_after_injected_failure(inputs, tmp_path, monkeypatch, unique,
     assert calls["n"] >= 2 * N_BATCHES
     assert calls["n"] < 3 * N_BATCHES or metrics["overflow_rerun_reads"] > 0
     assert not os.path.exists(ckpt)         # deleted on success
+
+
+# (resident, streamed): the patched device size and the -f values at
+# which the planner makes 3 and then 2 shards of the fixture's genome
+PLAN_CHANGES = {False: (64 * 2**30, 0.023531, 0.023545),
+                True: (8 * 2**20, 0.5, 0.95)}
+
+
+def _plans(metrics):
+    return [(p["shards"], p["serial_build"]) for p in metrics["plans"]]
+
+
+@pytest.mark.parametrize("unique", [True, False], ids=["unique", "all"])
+@pytest.mark.parametrize("stream", [False, True],
+                         ids=["resident", "streaming"])
+def test_resume_under_another_shard_plan(inputs, tmp_path, monkeypatch,
+                                         capsys, unique, stream):
+    """A checkpoint written under the planner's 3-shard plan and resumed
+    under a -f that plans 2 shards is ignored with a message: its unit
+    cursor counts units of another plan, so resuming it would skip other
+    windows and print fewer records. The resumed run prints the
+    uninterrupted run's bytes."""
+    from real_tpu_torch.parallel import plan
+    g, r, rs = inputs
+    hbm, f3, f2 = PLAN_CHANGES[stream]
+    monkeypatch.setattr(plan, "hbm_bytes_per_device", lambda dev="cuda": hbm)
+    ckpt = str(tmp_path / "plan.npz")
+    extra = dict(resident_reads_bytes=1) if stream else {}
+    texts = driver.load_texts(_cfg(g, r), "cpu")
+
+    def cfg(f, path=""):
+        return _cfg(g, r, path, unique, index_shards=0, fracmem=f, **extra)
+    full3, m3 = _run(cfg(f3), rs, texts)
+    full2, m2 = _run(cfg(f2), rs, texts)
+    assert full3 == full2 and full2.count("\n") > 200
+    assert [s for s, _ in _plans(m3)] == [3] and \
+        [s for s, _ in _plans(m2)] == [2]
+
+    _stopping_step(monkeypatch, N_BATCHES)      # after unit 1 of 3
+    with pytest.raises(_Stop):
+        _run(cfg(f3, ckpt), rs, texts)
+    assert os.path.exists(ckpt)
+    capsys.readouterr()
+    _stopping_step(monkeypatch, None)
+    resumed, metrics = _run(cfg(f2, ckpt), rs, texts)
+    assert "fingerprint mismatch" in capsys.readouterr().err
+    assert resumed == full2
+    assert metrics["units_skipped"] == 0 and metrics["units_dispatched"] == 2
+    assert _plans(metrics) == _plans(m2)
+
+
+@pytest.mark.parametrize("exchange", [False, True],
+                         ids=["replicated_build", "exchange"])
+def test_two_ranks_resume_under_another_shard_plan(inputs, tmp_path,
+                                                   exchange):
+    """Two ranks over read slices (parallel/multihost.py, gloo on the
+    CPU), stopped after their first unit under a 3-shard plan and run again
+    under a -f that plans 2: each rank ignores its checkpoint with a
+    message, and the concatenation is the one-process file."""
+    g, r, _ = inputs
+    hbm, f3, f2 = 64 * 2**30, 0.023535, 0.02356
+    base = ["-device", "cpu", "-t", g, "-p", r, "-B", "128", "-R", "0",
+            "-ckpt", str(tmp_path / "ranks.ckpt"), "-hbm", str(hbm)]
+    if exchange:
+        base += ["-exchange", str(tmp_path / "exchange")]
+    single = tmp_path / "single.txt"
+    assert t_main.main(["-device", "cpu", "-t", g, "-p", r, "-B", "128",
+                        "-R", "0", "-o", str(single)]) == 0
+    out = tmp_path / "out.txt"
+    logs = _run_ranks(tmp_path, "stop", [*base, "-f", str(f3), "-o",
+                                         str(out), "-stop_after", "2"])
+    assert all("simulated kill" in log for log in logs)
+    assert all(os.path.exists(tmp_path / f"ranks.ckpt.{k}")
+               for k in range(2))
+    logs = _run_ranks(tmp_path, "resume", [*base, "-f", str(f2), "-o",
+                                           str(out)], check=True)
+    assert all("fingerprint mismatch" in log for log in logs)
+    merged = b"".join((tmp_path / f"out.txt.{k}").read_bytes()
+                      for k in range(2))
+    assert merged == single.read_bytes() and merged.count(b"\n") > 200
+
+
+def _run_ranks(tmp_path, tag, flags, check=False):
+    """Two ranks of this file as a script, each with a timeout; their
+    logs. With check, both must exit 0."""
+    store = tmp_path / f"{tag}.store"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("WORLD_SIZE", None)
+    logs = [tmp_path / f"{tag}.{k}.log" for k in range(2)]
+    procs = []
+    try:
+        for k, log in enumerate(logs):
+            with open(log, "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "-init_method", f"file://{store}", "-world", "2",
+                     "-rank", str(k), *flags],
+                    env=env, stdout=f, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=240)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    texts = [log.read_text() for log in logs]
+    if check:
+        for p, text in zip(procs, texts):
+            assert p.returncode == 0, text[-3000:]
+    return texts
 
 
 def test_checkpoint_every_two_units(inputs, tmp_path, monkeypatch):
@@ -328,3 +438,28 @@ def test_watchdog_aborts_wedged_process():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert p.returncode == 3
     assert b"WATCHDOG" in p.stderr and b"wedged fetch" in p.stderr
+
+
+if __name__ == "__main__":
+    # one rank of test_two_ranks_resume_under_another_shard_plan: -hbm
+    # patches the planner's device size, -stop_after N stops the rank at
+    # its match step N + 1
+    from real_tpu_torch.parallel import multihost, plan
+    args = sys.argv[1:]
+    i = args.index("-hbm")
+    hbm = int(args[i + 1])
+    del args[i:i + 2]
+    plan.hbm_bytes_per_device = lambda dev="cuda": hbm
+    if "-stop_after" in args:
+        i = args.index("-stop_after")
+        after = int(args[i + 1])
+        del args[i:i + 2]
+        calls = [0]
+
+        def step(*a, **kw):
+            calls[0] += 1
+            if calls[0] > after:
+                raise _Stop("simulated kill")
+            return _REAL_STEP(*a, **kw)
+        driver.match_step = step
+    sys.exit(multihost.main(args))

@@ -140,6 +140,28 @@ def test_multihost_and_tools_modules_are_walked(rel):
     assert name in _port_modules()
 
 
+GENOME_SCALE_MODULES = ["tools/gendata.py", "tools/graft_entry.py"]
+
+
+@pytest.mark.parametrize("rel", GENOME_SCALE_MODULES)
+def test_genome_scale_tools_are_walked_and_import_no_benchmarks(rel):
+    """The data generator and the driver entry points are among the
+    imported modules and the checked sources, and neither imports the
+    repository's benchmarks (whose generator they copy)."""
+    path = os.path.join(REPO, "real_tpu_torch", rel)
+    assert path in PORT_FILES
+    assert "real_tpu_torch." + rel[:-3].replace("/", ".") in _port_modules()
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert all(n.split(".")[0] not in ("jax", "real_tpu", "benchmarks")
+                   for n in names), (rel, names)
+
+
 @pytest.mark.parametrize("rel", NATIVE_MODULES)
 def test_native_host_modules_are_checked_sources(rel):
     """The modules of the native host pipeline are among the files whose
