@@ -6,6 +6,7 @@
                                         # rank; (l) too on 2N cards or more
     python3 chip_smoke.py --cells       # (k)'s runs of a cell per card alone
     python3 chip_smoke.py --grch        # phase (m) alone
+    python3 chip_smoke.py --fly         # phase (n) alone
 
 Drives the port's four paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates in its 32-bit
@@ -43,8 +44,8 @@ sharing the card (python -m real_tpu_torch.parallel.multihost -mesh),
 cells on the card (RealConfig.mesh_devices), and (l) ranks that each drive
 such a mesh over their read slice (real_tpu's multi-host design): two
 ranks sharing the card, two cells each (multihost.run_rank); then the
-driver entry points of tools/graft_entry.py, and (m) the genome-scale
-path:
+driver entry points of tools/graft_entry.py, (m) the genome-scale path
+and (n) the read-scale path:
 
   grch         benchmarks/scale.py "grch" (tools/gendata.py GRCH): a
                3,100,000,000 bp random genome in one FASTA of 24
@@ -52,6 +53,11 @@ path:
                (errprob 0.02, seed 56), k <= 5, matchUnique with scores;
                nothing cut. The file splits into two sub-texts past 2^31
                bases, and the planner shards them beyond the card
+  fly          benchmarks/scale.py "fly" (tools/gendata.py FLY): a
+               140,000,000 bp random genome (seed 44), 50,000,000 reads x
+               100 bp FASTA (errprob 0.02, seed 45; 5.65 GB), k <= 5,
+               matchUnique with scores; nothing cut. Its data is made in
+               the background (nice 19) from the start of the run
 
 With --ranks N it runs phases 1-2, the matchUnique data, phase (i) and the
 matchUnique -shards 2 mesh of (j) alone, as N ranks on N cards (one each;
@@ -62,7 +68,9 @@ pins a card per rank there). With --cells it runs phases 1-2,
 the matchUnique and chr21 paths on cuda:0 alone, then (k)'s runs of one
 cell per card and the CLI's default mesh of every card against them, and
 dryrun_multichip over every card; it needs more than one card. With
---grch it runs phases 1-2 and (m) alone, then (m)'s kernel times.
+--grch it runs phases 1-2 and (m) alone, then (m)'s kernel times; with
+--fly phases 1-2 and (n) alone (its data made first), then (n)'s kernel
+times.
 
 Phases:
 
@@ -116,7 +124,11 @@ Phases:
                 records, phase seconds, overflow_rerun_reads,
                 batch_hit_overflow_steps, launches of probe_candidates and
                 verify_windows (> 0), truth share; then the bisection
-                pass as in phase 5
+                pass as in phase 5; (d3) -shards 3 with a resident-read
+                budget of 1 byte and -ckpt, stopped after unit 1 by the
+                hook of chr21 (d) and run again: 1 unit skipped, 31
+                batches matched before the stop and 2 x 31 streamed after
+                it, phase 7's records
   8. allparity  the port's matchAll on the CPU, plain host versions, over
                 the first 2,048 reads:
                 records byte-identical to the card's for those reads, and
@@ -221,7 +233,8 @@ Phases:
                 load_texts, run_match_unique and write_unique in this
                 process at the fewest -shards whose every unit skips
                 bisection with room in its deep-probe slots
-                (probe_route_shards): records byte-identical to (m-a)'s,
+                (probe_route_shards), on the first 262,144 reads
+                (patid_filter): records byte-identical to (m-a)'s of them,
                 launches of probe_candidates and verify_windows > 0; then
                 on sub-text #0's last shard (past 2^30) of (m-a)'s plan
                 gather_word_windows (the bucket bounds) and
@@ -229,9 +242,35 @@ Phases:
                 bit-exact against its plain version on a batch of the
                 reads of that shard, and one step's overflow share on
                 each shard and at the fewest bisection-free count
- 13. gatherbench  the tool's JSON line at both table sizes; the kernel's
+ 13. fly        (n): host MemAvailable and free disk against what the
+                phase needs (raises when short), checked before the data
+                is made; the data's seconds from tools/gendata.py's log;
+                (n-a) python -m real_tpu_torch.cli.main -u 1 -q 1 -e 5
+                -metrics in a process of its own, nothing forced, -R 1
+                writing the read store: the plan, wall_s, reads/s, phase
+                seconds with the rerun's, overflow_rerun_reads, ms per
+                batch step, the process's peak device bytes under the -f
+                0.75 budget and its peak RSS, launches of
+                gather_word_windows and verify_windows > 0; its records
+                hashed (SHA-256) and deleted; gendata.read_truth replayed
+                beside it; (n-b) load_texts, the reads from the store
+                (parse_reads_cached), run_match_unique at -shards 3 with a
+                resident-read budget of 1 byte and write_unique into a
+                hash in this process: 3 units, 3 x 1,526 streamed
+                batches, no unit bisecting, the host cache after pass 1,
+                ms per streamed step against (n-a)'s resident step, the
+                peak under the budget, launches of probe_candidates (the
+                32-bit entry) and verify_windows > 0, SHA-256 equal to
+                (n-a)'s; the truth: reads with <= 2 seed and <= 5
+                mismatches reported unique at their position and strand,
+                >= 0.999; then gather_word_windows and verify_windows on
+                (n-a)'s shard and probe_candidates and verify_windows on
+                (n-b)'s last, each bit-exact against its plain version on
+                a batch of the reads of that shard, and one step's
+                overflow share on each
+ 14. gatherbench  the tool's JSON line at both table sizes; the kernel's
                 launches counted over each run
- 14. times      each kernel at each main-path shape: kernel, plain version
+ 15. times      each kernel at each main-path shape: kernel, plain version
                 and one torch yardstick (the chain of index_select calls
                 that fetches the same words for the three match-step
                 entries, take_sum for gather_rowsum), device time (CUDA
@@ -250,6 +289,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import os
@@ -1041,13 +1081,45 @@ def all_parity_phase(cfg, r_small, result):
 
 
 class _StopAfterUnit(Exception):
-    """Raised by the hook that stops run (d) after its first unit."""
+    """Raised by the hook that stops runs (d), (d2) and (d3) after their
+    first unit."""
 
 
 def _require_same_records(tag, blob, blob_a):
     if blob != blob_a:
         raise AssertionError(f"chr21 ({tag}): records differ from the "
                              "default run's")
+
+
+def matchall_resume_phase(pc: PathCfg, cfg, r, blob_a, tmp, dev):
+    """Run (d3): the yeast matchAll path at -shards 3 with the reads
+    streamed and a checkpoint, stopped after unit 1 and run again: 1 unit
+    skipped, its 31 batches matched before the stop and 2 x 31 streamed
+    after it, and phase 7's records."""
+    steps_per_unit = -(-pc.num_reads // pc.batch)
+    ckpt = os.path.join(tmp, "yeast.ckpt")
+    cfg_d = dataclasses.replace(cfg, index_shards=3, resident_reads_bytes=1,
+                                checkpoint=ckpt)
+    steps = _stopped_after_unit(cfg_d, r, dev, steps_per_unit, "d3")
+    size = os.path.getsize(ckpt)
+    _, _, res, blob, records, ph = run_once(cfg_d, r, dev)
+    m = res.metrics
+    log(f"[{pc.name}] (d3) -shards 3, reads streamed, stopped after unit 1 "
+        f"({steps} steps, checkpoint of {size} B), resumed: "
+        f"{m['units_skipped']} unit skipped, {m['units_dispatched']} "
+        f"dispatched, {m['streamed_batches']} batches streamed, "
+        f"{ph['total']:.3f}s ({records} records)")
+    if steps != steps_per_unit or m["units"] != 3 \
+            or m["units_skipped"] != 1 or m["units_dispatched"] != 2 \
+            or m["source_resident"] \
+            or m["streamed_batches"] != 2 * steps_per_unit \
+            or os.path.exists(ckpt):
+        raise AssertionError(f"{pc.name} (d3): not 3 streamed units of "
+                             f"{steps_per_unit} batches with unit 1 skipped "
+                             "on resume, or the checkpoint was left")
+    if blob != blob_a:
+        raise AssertionError(f"{pc.name} (d3): records differ from phase "
+                             "7's")
 
 
 def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
@@ -1158,11 +1230,11 @@ def _stopped_after_unit(cfg, r, dev, steps_per_unit, tag) -> int:
     except _StopAfterUnit:
         pass
     else:
-        raise AssertionError(f"chr21 ({tag}): the hook did not stop the run")
+        raise AssertionError(f"({tag}): the hook did not stop the run")
     finally:
         driver.match_step = real_step
     if not os.path.exists(cfg.checkpoint):
-        raise AssertionError(f"chr21 ({tag}): no checkpoint after unit 1")
+        raise AssertionError(f"({tag}): no checkpoint after unit 1")
     return calls[0] - 1
 
 
@@ -1867,8 +1939,11 @@ GRCH_DISK_BYTES = 4.5e9     # genome 3.15 GB, reads 0.22 GB, read store,
 GRCH_HOST_BYTES = 24e9      # (m-a)'s process at its peak, and this one's
                             # reads and truth beside it
 GRCH_TIMEOUT_S = 900
+# (m-b) runs the first GRCH_PROBE_READS reads (patid_filter: the bucket
+# widths stay those of the 2M-read run)
+GRCH_PROBE_READS = 262_144
 # the CLI as a user runs it, then its process's peak device bytes
-GRCH_CLI_CODE = (
+CLI_PEAK_CODE = (
     "import json, sys, torch\n"
     "from real_tpu_torch.cli import main as cli\n"
     "rc = cli.main(sys.argv[2:])\n"
@@ -1885,17 +1960,18 @@ def _mem_available() -> int:
     raise RuntimeError("no MemAvailable line in /proc/meminfo")
 
 
-def grch_resources(tmp):
+def phase_resources(tag, tmp, host_bytes, disk_bytes):
+    """Host MemAvailable and free disk under `tmp`, logged; raises when
+    either is short of what the phase needs."""
     import shutil
     avail, disk = _mem_available(), shutil.disk_usage(tmp).free
-    log(f"[grch] host MemAvailable {avail} B, free disk under {tmp} {disk} "
-        f"B; the phase needs {GRCH_HOST_BYTES:.0f} B of host memory and "
-        f"{GRCH_DISK_BYTES:.0f} B of disk")
-    if avail < GRCH_HOST_BYTES or disk < GRCH_DISK_BYTES:
+    log(f"[{tag}] host MemAvailable {avail} B, free disk under {tmp} {disk} "
+        f"B; the phase needs {host_bytes:.0f} B of host memory and "
+        f"{disk_bytes:.0f} B of disk")
+    if avail < host_bytes or disk < disk_bytes:
         raise AssertionError(
-            f"grch: not enough resources (MemAvailable {avail} B, free disk "
-            f"{disk} B; needs {GRCH_HOST_BYTES:.0f} and "
-            f"{GRCH_DISK_BYTES:.0f} B)")
+            f"{tag}: not enough resources (MemAvailable {avail} B, free disk "
+            f"{disk} B; needs {host_bytes:.0f} and {disk_bytes:.0f} B)")
 
 
 def grch_data(tmp):
@@ -1932,21 +2008,21 @@ def _plan_line(p) -> str:
             f"{sorted(set(b))}, bsearch steps {sorted(set(st))}")
 
 
-def grch_cli_run(torch, g, r, tmp):
-    """(m-a): the CLI in a process of its own, nothing forced. Returns
-    (record bytes, metrics)."""
+def cli_child(tag, args, tmp, timeout):
+    """`python -m real_tpu_torch.cli.main args -metrics <file>` in a process
+    of its own (CLI_PEAK_CODE), killed after `timeout` seconds. Returns
+    (metrics, the process's peak device bytes, its peak RSS in bytes,
+    seconds from start to exit)."""
     import threading
-    out, mfile = os.path.join(tmp, "out.txt"), os.path.join(tmp, "m.json")
-    peakf, logf = os.path.join(tmp, "peak.json"), os.path.join(tmp, "cli.log")
-    args = ["-t", g, "-p", r, "-o", out, "-u", "1", "-q", "1", "-k", "5",
-            "-metrics", mfile]
+    mfile, peakf = os.path.join(tmp, "m.json"), os.path.join(tmp, "peak.json")
+    logf = os.path.join(tmp, "cli.log")
     t = time.perf_counter()
     with open(logf, "wb") as f:
         proc = subprocess.Popen(
-            [sys.executable, "-c", GRCH_CLI_CODE, peakf, *args], cwd=REPO,
-            env=dict(os.environ, PYTHONPATH=REPO), stdout=f,
-            stderr=subprocess.STDOUT)
-    timer = threading.Timer(GRCH_TIMEOUT_S, proc.kill)
+            [sys.executable, "-c", CLI_PEAK_CODE, peakf, *args, "-metrics",
+             mfile], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=f, stderr=subprocess.STDOUT)
+    timer = threading.Timer(timeout, proc.kill)
     timer.start()
     try:
         # wait4: this child's own resource use (its peak RSS)
@@ -1957,16 +2033,26 @@ def grch_cli_run(torch, g, r, tmp):
     secs = time.perf_counter() - t
     if proc.returncode != 0:
         with open(logf, "rb") as f:
-            raise AssertionError(f"grch (m-a): exit {proc.returncode}:\n"
+            raise AssertionError(f"{tag}: exit {proc.returncode}:\n"
                                  + f.read().decode()[-3000:])
     with open(mfile) as f:
         m = json.load(f)
     with open(peakf) as f:
         peak = json.load(f)
+    return m, peak, usage.ru_maxrss * 1024, secs
+
+
+def grch_cli_run(torch, g, r, tmp):
+    """(m-a): the CLI in a process of its own, nothing forced. Returns
+    (record bytes, metrics)."""
+    out = os.path.join(tmp, "out.txt")
+    args = ["-t", g, "-p", r, "-o", out, "-u", "1", "-q", "1", "-e", "5"]
+    m, peak, rss, secs = cli_child("grch (m-a)", args, tmp, GRCH_TIMEOUT_S)
     total = torch.cuda.mem_get_info()[1]
     budget = 0.75 * total
     k = m["kernel_launches"]
-    log(f"[grch] (m-a) python -m real_tpu_torch.cli.main {' '.join(args)}: "
+    log(f"[grch] (m-a) python -m real_tpu_torch.cli.main {' '.join(args)} "
+        f"-metrics: "
         f"{secs:.1f}s start to exit; wall_s {m['wall_s']}, reads_per_sec "
         f"{m['reads_per_sec']}; phases: " + " ".join(
             f"{key}={v}s" for key, v in m["phase_s"].items()))
@@ -1977,7 +2063,7 @@ def grch_cli_run(torch, g, r, tmp):
         f"{'resident' if m['source_resident'] else 'streamed'}, planner "
         f"reserved {m['reserved_bytes']} B; peak device memory {peak} B "
         f"against the -f 0.75 budget of {budget:.0f} B (card {total} B); "
-        f"host peak RSS {usage.ru_maxrss * 1024} B; launches "
+        f"host peak RSS {rss} B; launches "
         f"gather_word_windows {k['gather_word_windows']}, verify_windows "
         f"{k['verify_windows']}, probe_candidates {k['probe_candidates']}; "
         f"overflow_rerun_reads {m['overflow_rerun_reads']}")
@@ -2042,6 +2128,17 @@ def grch_truth(blob):
     return start, inv
 
 
+def _records_below(blob, n) -> bytes:
+    """The records of reads 0..n-1 of a matchUnique output in read order
+    (ids 'r%09d' of tools/gendata.py): a prefix of `blob`."""
+    end = 0
+    for line in blob.splitlines(keepends=True):
+        if int(line[1:10]) >= n:
+            break
+        end += len(line)
+    return blob[:end]
+
+
 def probe_route_shards(cfg, texts, reads):
     """(the fewest -shards at which no unit of any text bisects, the fewest
     at or past it at which, besides, a full batch's probes of deep buckets
@@ -2100,9 +2197,9 @@ def _shard_reads(torch, rs, start, inv, lo, hi, dev, n=32768):
             start[sel], inv[sel])
 
 
-def grch_kernel_inputs(torch, text, index, rs, start, inv, lo, hi, dev,
-                       tag, rng):
-    """(sites, reads, fused) of K1's entries on one shard of grch's own
+def shard_kernel_inputs(torch, text, index, rs, start, inv, lo, hi, dev,
+                        tag, rng):
+    """(sites, reads, fused) of K1's entries on one shard of a path's own
     tables, for a batch of the reads whose true window lies in it: the
     bucket-bound fetch of its bisection route (gather_word_windows, w =
     2), probe_candidates at its batch shape, and verify_windows with each
@@ -2150,7 +2247,7 @@ def grch_phase(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grch_") as tmp:
-        grch_resources(tmp)
+        phase_resources("grch", tmp, GRCH_HOST_BYTES, GRCH_DISK_BYTES)
         g, r = grch_data(tmp)
         log(f"[grch] card free before (m-a): {torch.cuda.mem_get_info()[0]} "
             "B")
@@ -2178,7 +2275,11 @@ def grch_phase(torch, dev):
         torch.cuda.reset_peak_memory_stats()
         gather.reset_launch_counts()
         t = time.perf_counter()
-        res = driver.run_match_unique(cfg_b, rs, texts, dev)
+        # the first GRCH_PROBE_READS reads; the bucket widths are the
+        # 2M-read run's, so every unit stays bisection-free
+        res = driver.run_match_unique(
+            cfg_b, rs, texts, dev,
+            patid_filter=np.arange(min(GRCH_PROBE_READS, rs.num_reads)))
         torch.cuda.synchronize()
         match_s = time.perf_counter() - t
         launches_b = gather.launch_counts()
@@ -2189,8 +2290,9 @@ def grch_phase(torch, dev):
         out_s = time.perf_counter() - t
         m = res.metrics
         log(f"[grch] (m-b) load_texts {load_s:.1f}s, parse_reads "
-            f"{parse_s:.1f}s, run_match_unique -shards {shards} "
-            f"{match_s:.1f}s ({m['units_dispatched']} units), write_unique "
+            f"{parse_s:.1f}s, run_match_unique -shards {shards} on the "
+            f"first {GRCH_PROBE_READS} reads {match_s:.1f}s "
+            f"({m['units_dispatched']} units), write_unique "
             f"{out_s:.1f}s; match phases: " + " ".join(
                 f"{k}={v:.3f}s" for k, v in m["phase_s"].items()))
         for fi, p in enumerate(m["plans"]):
@@ -2198,17 +2300,19 @@ def grch_phase(torch, dev):
         log(f"[grch] (m-b) peak device memory {peak_b} B over the texts; "
             f"launches {launches_b}; overflow_rerun_reads "
             f"{m['overflow_rerun_reads']}")
-        if buf.getvalue() != blob_a:
-            raise AssertionError("grch (m-b): records differ from (m-a)'s")
+        want = _records_below(blob_a, GRCH_PROBE_READS)
+        if buf.getvalue() != want:
+            raise AssertionError("grch (m-b): records differ from (m-a)'s "
+                                 "records of the same reads")
         if launches_b["probe_candidates"] <= 0 \
                 or launches_b["verify_windows"] <= 0:
             raise AssertionError("grch (m-b): a K1 entry of the probe route "
                                  "made no launch")
         if any(s for p in m["plans"] for s in p["bsearch_steps"]):
             raise AssertionError("grch (m-b): a unit bisects")
-        records = blob_a.count(b"\n")
-        log(f"[grch] (m-a) and (m-b) records byte-identical ({records} "
-            "records)")
+        records = want.count(b"\n")
+        log(f"[grch] (m-b) records byte-identical to (m-a)'s of the same "
+            f"reads ({records} records)")
         del res, buf, blob_a
 
         # K1 on grch's tables: sub-text #0's last shard, past the high
@@ -2233,7 +2337,7 @@ def grch_phase(torch, dev):
             if lo < GRCH_HIGH_BASE:
                 raise AssertionError(f"{tag}: the last shard starts below "
                                      f"base {GRCH_HIGH_BASE}")
-            s_sites, codes, s_fused = grch_kernel_inputs(
+            s_sites, codes, s_fused = shard_kernel_inputs(
                 torch, text, index, rs, start, inv, lo, hi, dev, tag, rng)
             steps = driver._bsearch_steps_static(hi - lo, cfg.cand_cap,
                                                  index.bucket_bits)
@@ -2263,6 +2367,340 @@ def grch_phase(torch, dev):
                              "probe_candidates":
                              launches_b["probe_candidates"]}}
     log(f"[grch] phase (m) {time.perf_counter() - t_phase:.1f}s")
+    return sites, errs, fused, ferrs, fouts, launches
+
+
+# phase (n): the read-scale path (tools/gendata.py FLY)
+FLY_TRUTH_FLOOR = 0.999
+FLY_SHARDS_B = 3            # (n-b): real_tpu's shape of config 4, three
+                            # bisection-free units with the reads streamed
+FLY_DISK_BYTES = 22e9       # reads 5.65 GB, read store ~6.5 GB, genome
+                            # 0.14 GB, (n-a)'s records ~7.7 GB
+FLY_HOST_BYTES = 32e9       # (n-a)'s process at its peak, and this one's
+                            # truth, read-store pages and pinned cache
+FLY_TIMEOUT_S = 900         # (n-a)'s process, and the data's
+
+
+class FlyData:
+    """fly's genome and reads, written by tools/gendata.py in a process of
+    its own: in the background at the lowest priority while the earlier
+    phases run, or in the foreground (--fly). Checks the host's memory
+    and disk for the whole phase before it starts."""
+
+    def __init__(self, tmp: str, background: bool):
+        from real_tpu_torch.tools import gendata
+        F = gendata.FLY
+        phase_resources("fly", tmp, FLY_HOST_BYTES, FLY_DISK_BYTES)
+        self.tmp, self.background = tmp, background
+        self.genome = os.path.join(tmp, "genome.fa")
+        self.reads = os.path.join(tmp, "reads.fa")
+        self.logf = os.path.join(tmp, "gendata.log")
+        cmd = [sys.executable, "-m", "real_tpu_torch.tools.gendata", tmp,
+               "--genome-bp", str(F.genome_n), "--reads", str(F.numpat),
+               "--patl", str(F.patl), "--errprob", str(F.errprob),
+               "--fragments", str(F.fragments), "--seed", str(F.seed)]
+        self.t0 = time.perf_counter()
+        with open(self.logf, "wb") as f:
+            self.proc = subprocess.Popen(
+                cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=f, stderr=subprocess.STDOUT,
+                preexec_fn=(lambda: os.nice(19)) if background else None)
+
+    def wait(self):
+        """(genome path, reads path) once written; logs each step's
+        seconds from the generator's log."""
+        from real_tpu_torch.tools import gendata
+        F = gendata.FLY
+        t = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=FLY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError("fly: the data took more than "
+                                 f"{FLY_TIMEOUT_S} s")
+        waited = time.perf_counter() - t
+        with open(self.logf) as f:
+            text = f.read()
+        if rc != 0:
+            raise AssertionError(f"fly: gendata exit {rc}:\n{text[-3000:]}")
+        secs = dict(re.findall(r"^(\w+_s) ([\d.]+)$", text, re.M))
+        log(f"[fly] data: genome {F.genome_n} bp (seed {F.seed}, "
+            f"{os.path.getsize(self.genome)} B) in {secs['genome_s']}s; "
+            f"{F.numpat} reads x {F.patl} bp FASTA (errprob {F.errprob}, "
+            f"seed {F.seed + 1}, {os.path.getsize(self.reads)} B) in "
+            f"{secs['reads_s']}s after parsing the genome in "
+            f"{secs['genome_parse_s']}s; "
+            + ("made in the background at nice 19 beside the earlier "
+               f"phases, waited {waited:.1f}s for it at phase (n)"
+               if self.background else f"{waited:.1f}s in all"))
+        return self.genome, self.reads
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class _HashSink:
+    """A binary output file that keeps only the SHA-256, the bytes and the
+    lines of what is written to it."""
+
+    def __init__(self):
+        self.sha, self.nbytes, self.lines = hashlib.sha256(), 0, 0
+
+    def write(self, blob: bytes) -> int:
+        self.sha.update(blob)
+        self.nbytes += len(blob)
+        self.lines += blob.count(b"\n")
+        return len(blob)
+
+
+def _hash_and_remove(path: str):
+    """(the file's _HashSink, seconds), the file deleted after."""
+    t = time.perf_counter()
+    sink = _HashSink()
+    with open(path, "rb") as f:
+        while True:
+            blob = f.read(1 << 26)
+            if not blob:
+                break
+            sink.write(blob)
+    os.remove(path)
+    return sink, time.perf_counter() - t
+
+
+def fly_cli_run(torch, g, r, tmp, nbatches):
+    """(n-a): the CLI in a process of its own, nothing forced, -R 1 (the
+    default) writing the read store. Returns (its output file, metrics)."""
+    out = os.path.join(tmp, "out.txt")
+    args = ["-t", g, "-p", r, "-o", out, "-u", "1", "-q", "1", "-e", "5"]
+    m, peak, rss, secs = cli_child("fly (n-a)", args, tmp, FLY_TIMEOUT_S)
+    total = torch.cuda.mem_get_info()[1]
+    budget = 0.75 * total
+    k = m["kernel_launches"]
+    ph = m["phase_s"]
+    steps = m["units_dispatched"] * nbatches
+    log(f"[fly] (n-a) python -m real_tpu_torch.cli.main {' '.join(args)} "
+        f"-metrics: {secs:.1f}s start to exit; wall_s {m['wall_s']}, "
+        f"reads_per_sec {m['reads_per_sec']}; phases: " + " ".join(
+            f"{key}={v}s" for key, v in ph.items()))
+    log(f"[fly] (n-a) plan: {_plan_line(m['plans'][0])}; units "
+        f"{m['units']}, reads "
+        f"{'resident' if m['source_resident'] else 'streamed'} "
+        f"({m['resident_read_bytes']} B), planner reserved "
+        f"{m['reserved_bytes']} B; {steps} batch steps, "
+        f"{ph['match'] / steps * 1e3:.2f} ms each; overflow_rerun_reads "
+        f"{m['overflow_rerun_reads']}")
+    log(f"[fly] (n-a) peak device memory {peak} B against the -f 0.75 "
+        f"budget of {budget:.0f} B (card {total} B); host peak RSS {rss} B; "
+        f"launches gather_word_windows {k['gather_word_windows']}, "
+        f"verify_windows {k['verify_windows']}, probe_candidates "
+        f"{k['probe_candidates']}; output {os.path.getsize(out)} B")
+    if k["gather_word_windows"] <= 0 or k["verify_windows"] <= 0:
+        raise AssertionError("fly (n-a): a K1 entry of the bisection route "
+                             "made no launch")
+    if peak > budget:
+        raise AssertionError(f"fly (n-a): peak {peak} B over the budget of "
+                             f"{budget:.0f} B")
+    return out, m
+
+
+def fly_truth(res, truth):
+    """Among reads with <= 2 mismatches in the seed and <= 5 in all, the
+    share reported unique at their true position and strand."""
+    from real_tpu_torch.engine.matchstep import REVERSE, STRAIGHT
+    start, inv, seedk, totalk = truth
+    hit = (res.st == STRAIGHT) | (res.st == REVERSE)
+    ok = hit & (res.pos == start) & ((res.st == REVERSE) == inv)
+    sel = (seedk <= 2) & (totalk <= 5)
+    share = float(ok[sel].mean())
+    log(f"[fly] truth: {int(ok[sel].sum())} of {int(sel.sum())} reads "
+        f"within the limits reported unique at their position and strand "
+        f"= {share:.6f}; {int(hit.sum())} reads reported unique of "
+        f"{len(start)}")
+    if share < FLY_TRUTH_FLOOR:
+        raise AssertionError(f"fly truth {share} below {FLY_TRUTH_FLOOR}")
+
+
+def fly_phase(torch, dev, data: FlyData):
+    """Phase (n): the read-scale path. Returns the K1 sites and fused
+    cases on fly's own tables, their errors and outputs, and the launches
+    of each route, for the times phase."""
+    from real_tpu_torch.config import RealConfig
+    from real_tpu_torch.tools import gendata
+    F = gendata.FLY
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g, r = data.wait()
+    tmp = data.tmp
+    phase_resources("fly", tmp, FLY_HOST_BYTES, FLY_DISK_BYTES
+                    - os.path.getsize(g) - os.path.getsize(r))
+    nbatches = -(-F.numpat // RealConfig.batch_size)
+
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        sites, errs, fused, ferrs, fouts, launches = _fly_runs(
+            torch, dev, g, r, tmp, nbatches, ex)
+    log(f"[fly] phase (n) {time.perf_counter() - t_phase:.1f}s")
+    return sites, errs, fused, ferrs, fouts, launches
+
+
+def _fly_runs(torch, dev, g, r, tmp, nbatches, ex):
+    """(n-a), (n-b), the truth and K1 on fly's tables; the truth's replay
+    runs in `ex` beside (n-a), (n-a)'s hash beside (n-b)."""
+    from real_tpu_torch.cli.output import write_unique
+    from real_tpu_torch.config import RealConfig
+    from real_tpu_torch.engine import driver
+    from real_tpu_torch.io import readstore
+    from real_tpu_torch.ops import gather
+    from real_tpu_torch.parallel.plan import StreamShardPlan
+    from real_tpu_torch.tools import gendata
+    F = gendata.FLY
+    truth_f = ex.submit(lambda: tuple(np.concatenate(c) for c in zip(
+        *gendata.read_truth(F.genome_n, F.numpat, F.patl, F.errprob,
+                            F.seed + 1))))
+    out_a, m_a = fly_cli_run(torch, g, r, tmp, nbatches)
+    hash_f = ex.submit(_hash_and_remove, out_a)
+    t = time.perf_counter()
+    truth = truth_f.result()
+    log(f"[fly] read_truth replayed beside (n-a); waited "
+        f"{time.perf_counter() - t:.1f}s for it")
+
+    # (n-b) in-process: 3 bisection-free units, the reads streamed
+    store = readstore._store_path(r)
+    if not os.path.exists(os.path.join(store, "meta.npz")):
+        raise AssertionError("fly (n-a): -R 1 left no read store")
+    store_bytes = sum(e.stat().st_size for e in os.scandir(store))
+    cfg = RealConfig(textfilename=g, patternfilename=r,
+                     outputfilename="-", totalkmax=5)
+    t = time.perf_counter()
+    texts = driver.load_texts(cfg, dev)
+    load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rs = readstore.parse_reads_cached(r)
+    store_s = time.perf_counter() - t
+    if not isinstance(rs.codes_flat, np.memmap):
+        raise AssertionError("fly (n-b): the reads were not loaded from "
+                             "the read store")
+    cfg_b = dataclasses.replace(cfg, index_shards=FLY_SHARDS_B,
+                                resident_reads_bytes=1)
+    sources, make_source = [], driver._make_source
+
+    def keep_source(*a, **kw):
+        sources.append(make_source(*a, **kw))
+        return sources[-1]
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gather.reset_launch_counts()
+    driver._make_source = keep_source
+    t = time.perf_counter()
+    try:
+        res = driver.run_match_unique(cfg_b, rs, texts, dev)
+        torch.cuda.synchronize()
+    finally:
+        driver._make_source = make_source
+    match_s = time.perf_counter() - t
+    launches_b = gather.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated() - base
+    cache_bytes = sources[0]._host_cache_bytes
+    cached = len(sources[0]._host_cache)
+    del sources
+    sink_b = _HashSink()
+    t = time.perf_counter()
+    write_unique(sink_b, rs, res, texts, cfg.scores)
+    out_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sink_a, hash_s = hash_f.result()
+    log(f"[fly] (n-a) records {sink_a.lines} ({sink_a.nbytes} B, SHA-256 "
+        f"{sink_a.sha.hexdigest()}), hashed in {hash_s:.1f}s beside (n-b); "
+        f"waited {time.perf_counter() - t:.1f}s for it")
+    m, ph = res.metrics, res.metrics["phase_s"]
+    budget = 0.75 * torch.cuda.mem_get_info()[1]
+    steps_a = m_a["units_dispatched"] * nbatches
+    log(f"[fly] (n-b) read store {store} ({store_bytes} B) loaded in "
+        f"{store_s:.2f}s; load_texts {load_s:.1f}s; run_match_unique "
+        f"-shards {FLY_SHARDS_B}, reads streamed, {match_s:.1f}s; "
+        f"write_unique {out_s:.1f}s; match phases: " + " ".join(
+            f"{k}={v:.3f}s" for k, v in ph.items()))
+    log(f"[fly] (n-b) plan: {_plan_line(m['plans'][0])}; units "
+        f"{m['units_dispatched']}, streamed batches {m['streamed_batches']} "
+        f"({FLY_SHARDS_B} x {nbatches}); host cache after pass 1: {cached} "
+        f"batches, {cache_bytes} B; "
+        f"{ph['match'] / max(m['streamed_batches'], 1) * 1e3:.2f} ms per "
+        f"streamed step against (n-a)'s "
+        f"{m_a['phase_s']['match'] / steps_a * 1e3:.2f} ms per resident "
+        f"step; overflow_rerun_reads {m['overflow_rerun_reads']}")
+    log(f"[fly] (n-b) peak device memory {peak_b} B over the bytes live "
+        f"before the run (-f 0.75 budget {budget:.0f} B); launches "
+        f"{launches_b}; records {sink_b.lines} ({sink_b.nbytes} B, SHA-256 "
+        f"{sink_b.sha.hexdigest()})")
+    if m["units_dispatched"] != FLY_SHARDS_B or m["source_resident"] \
+            or m["streamed_batches"] != FLY_SHARDS_B * nbatches:
+        raise AssertionError(f"fly (n-b): not {FLY_SHARDS_B} units over a "
+                             f"streaming source of {nbatches} batches")
+    if any(s for p in m["plans"] for s in p["bsearch_steps"]):
+        raise AssertionError("fly (n-b): a unit bisects")
+    if launches_b["probe_candidates"] <= 0 \
+            or launches_b["probe_candidates_wide"] != 0 \
+            or launches_b["verify_windows"] <= 0:
+        raise AssertionError("fly (n-b): the probe route's K1 entries "
+                             "(probe_candidates 32-bit, verify_windows) "
+                             "made no launch")
+    if peak_b > budget:
+        raise AssertionError(f"fly (n-b): peak {peak_b} B over the budget "
+                             f"of {budget:.0f} B")
+    if sink_b.sha.digest() != sink_a.sha.digest() \
+            or sink_b.nbytes != sink_a.nbytes:
+        raise AssertionError("fly (n-b): records differ from (n-a)'s")
+    log(f"[fly] (n-a) and (n-b) records byte-identical by SHA-256 "
+        f"({sink_a.lines} records)")
+    # (n-b)'s records are (n-a)'s bytes: the truth reads (n-b)'s result
+    fly_truth(res, truth)
+    del res
+
+    # K1 on fly's tables: (n-a)'s shard (the bisection route's entries)
+    # and (n-b)'s last shard (the probe route's)
+    text = texts[0].packed
+    nw = text.n - cfg.seedl + 1
+    rng = np.random.default_rng(46)
+    sites, fused = [], []
+    p = m_a["plans"][0]
+    for tag, splan in (("fly", StreamShardPlan(p["shards"], p["serial_build"],
+                                               p["bucket_bits_cap"])),
+                       ("fly_n_b", StreamShardPlan(FLY_SHARDS_B, False,
+                                                   driver.BUCKET_BITS_CAP))):
+        lo, hi = driver._shard_bounds(nw, splan.shards)[-1]
+        t = time.perf_counter()
+        index = driver._build(cfg, text, lo, hi - lo, F.numpat, splan)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        s_sites, codes, s_fused = shard_kernel_inputs(
+            torch, text, index, rs, truth[0], truth[1], lo, hi, dev, tag,
+            rng)
+        steps = driver._bsearch_steps_static(hi - lo, cfg.cand_cap,
+                                             index.bucket_bits)
+        over = grch_overflow_share(torch, cfg, index, text, codes, steps)
+        log(f"[fly] {tag}: the last shard of {splan.shards}, windows "
+            f"[{lo}, {hi}) (bucket bits {index.bucket_bits}, bsearch "
+            f"{steps}) built in {build_s:.2f}s; one step on "
+            f"{codes.shape[0]} of its reads: overflow share {over:.5f}")
+        if tag == "fly":            # the bisection route's entries
+            sites += s_sites
+            fused.append(s_fused[1])
+        else:                       # the probe route's
+            fused += s_fused
+        del index, s_sites, s_fused, codes
+        gc.collect()
+    errs = gather_kernel_phase(torch, sites, dev)
+    ferrs, fouts = fused_kernel_phase(torch, fused, {"fly": 5, "fly_n_b": 5},
+                                      dev)
+    launches = {tag: {"gather_windows": k["gather_word_windows"],
+                      "verify_windows": k["verify_windows"],
+                      "probe_candidates": k["probe_candidates"]}
+                for tag, k in (("fly", m_a["kernel_launches"]),
+                               ("fly_n_b", launches_b))}
     return sites, errs, fused, ferrs, fouts, launches
 
 
@@ -2444,8 +2882,30 @@ def times_phase(torch, sites, errs, fused, ferrs, fouts, launches_by_path,
     return out
 
 
+@contextlib.contextmanager
+def fly_data(background: bool):
+    """fly's data (FlyData) in a directory of its own, removed afterwards;
+    the generator is stopped if it still runs."""
+    import shutil
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fly_")
+    data = None
+    try:
+        data = FlyData(tmp, background)
+        yield data
+    finally:
+        if data is not None:
+            data.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def drive(torch, dev) -> list:
-    """Phases 3-11 on `dev`; returns the kernels' JSON entries."""
+    """Phases 3-13 on `dev`, fly's data made in the background from the
+    start; returns the kernels' JSON entries."""
+    with fly_data(background=True) as fly:
+        return _drive(torch, dev, fly)
+
+
+def _drive(torch, dev, fly) -> list:
     from real_tpu_torch.engine import driver
     unique, yeast, chr21 = UNIQUE, YEAST, CHR21
     wide = [dataclasses.replace(chr21, name=f"chr21_l{seedl}", seedl=seedl)
@@ -2491,6 +2951,7 @@ def drive(torch, dev) -> list:
         bisection_phase(torch, yeast, cfg_a, ra_warm, res_a, launches_a, dev)
         all_parity_phase(cfg_a, ra_small, res_a)
         del res_a, truth_a
+        matchall_resume_phase(yeast, cfg_a, ra, blob_a, tmp, dev)
 
         rc, rc_small, rc_warm, rc_wide, truth_c = make_reads(
             tmp, chr21, codes_c, extra=(WIDE_READS,))
@@ -2546,18 +3007,31 @@ def drive(torch, dev) -> list:
 
     g_sites, g_errs, g_fused, g_ferrs, g_fouts, launches_g = grch_phase(
         torch, dev)
+    f_sites, f_errs, f_fused, f_ferrs, f_fouts, launches_f = fly_phase(
+        torch, dev, fly)
     rlaunches = gatherbench_phase(big_table.numel())
     return times_phase(
-        torch, sites + g_sites, {**errs, **g_errs}, fused + g_fused,
-        {**ferrs, **g_ferrs}, {**fouts, **g_fouts},
+        torch, sites + g_sites + f_sites, {**errs, **g_errs, **f_errs},
+        fused + g_fused + f_fused, {**ferrs, **g_ferrs, **f_ferrs},
+        {**fouts, **g_fouts, **f_fouts},
         {unique.name: launches_u, yeast.name: launches_a,
-         chr21.name: launches_c, **launches_w, **launches_g},
+         chr21.name: launches_c, **launches_w, **launches_g, **launches_f},
         rcases, rerrs, rlaunches)
 
 
 def grch_only(torch, dev) -> list:
     """--grch: phase (m) alone, then its kernels' times."""
     sites, errs, fused, ferrs, fouts, launches = grch_phase(torch, dev)
+    return times_phase(torch, sites, errs, fused, ferrs, fouts, launches,
+                       [], {}, {})
+
+
+def fly_only(torch, dev) -> list:
+    """--fly: phase (n) alone, its data made first, then its kernels'
+    times."""
+    with fly_data(background=False) as fly:
+        sites, errs, fused, ferrs, fouts, launches = fly_phase(torch, dev,
+                                                               fly)
     return times_phase(torch, sites, errs, fused, ferrs, fouts, launches,
                        [], {}, {})
 
@@ -2656,8 +3130,12 @@ def main() -> int:
     # plain cuda meshes every card of a machine of several (phase (k)
     # drives that mesh); the phases before it then pin the first card
     dev = "cuda" if torch.cuda.device_count() == 1 else "cuda:0"
-    kernels = grch_only(torch, dev) if "--grch" in sys.argv \
-        else drive(torch, dev)
+    if "--grch" in sys.argv:
+        kernels = grch_only(torch, dev)
+    elif "--fly" in sys.argv:
+        kernels = fly_only(torch, dev)
+    else:
+        kernels = drive(torch, dev)
     log("kernels: gather_windows, probe_candidates (32-bit and 64-bit "
         "entries), verify_windows, gather_rowsum")
     log(f"[done] {time.perf_counter() - t_all:.1f}s")

@@ -11,20 +11,31 @@ replays the generator's random draws to recover it.
 
     python -m real_tpu_torch.tools.gendata DIR --genome-bp 3100000000 \\
         --fragments 24 --reads 2000000 --seed 55      # GRCH below
+    python -m real_tpu_torch.tools.gendata DIR --genome-bp 140000000 \\
+        --reads 50000000 --seed 44                    # FLY below
+
+It prints the seconds of each step it ran (genome_s, genome_parse_s,
+reads_s) on stderr.
 
 Everything here runs on the host.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Tuple
 
 import numpy as np
 
 _REMAP = np.frombuffer(b"ACGTN", dtype=np.uint8)
+# write_reads_fast's record formatters (NumPy releases the interpreter
+# lock in their array work; the draws stay on the calling thread)
+_FORMAT_THREADS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +96,55 @@ def _chunk_draws(rng, c: int, numpos: int, patl: int, errprob: float):
     start positions, strands, mutated bases, mutation deltas."""
     pos = rng.integers(0, numpos, c)
     inv = rng.integers(0, 2, c, dtype=np.uint8).astype(bool)
-    mut = rng.random((c, patl)) <= errprob
+    # rng.random((c, patl)) <= errprob, in cache-sized blocks: one double
+    # per 64-bit draw either way, so the stream is the same
+    mut = np.empty(c * patl, bool)
+    buf = np.empty(min(1 << 20, c * patl))
+    for s in range(0, c * patl, len(buf)):
+        u = buf[:min(len(buf), c * patl - s)]
+        rng.random(out=u)
+        np.less_equal(u, errprob, out=mut[s:s + len(u)])
     delta = rng.integers(1, 4, (c, patl), dtype=np.uint8)
-    return pos, inv, mut, delta
+    return pos, inv, mut.reshape(c, patl), delta
+
+
+def _format_reads(codes: np.ndarray, lo: int, draws, patl: int,
+                  fastq: bool) -> bytes:
+    """One chunk of records from its draws: reads lo, lo+1, ... as one
+    byte matrix of fixed-width records."""
+    pos, inv, mut, delta = draws
+    c = len(pos)
+    win = np.lib.stride_tricks.sliding_window_view(codes, patl)[pos]
+    win = np.where(inv[:, None], 3 - win[:, ::-1], win).astype(np.uint8)
+    win = np.where(mut, (win + delta) & 3, win)
+    seq = _REMAP[win]                               # [c, patl] bytes
+    idw = 10                   # 'r' + 9 digits
+    nl = np.uint8(ord("\n"))
+    digits = (np.arange(lo, lo + c, dtype=np.int64)[:, None]
+              // 10 ** np.arange(8, -1, -1, dtype=np.int64)) % 10
+    if fastq:
+        # @id\nseq\n+\nqual\n with the constant quality '5'
+        w = 1 + idw + 1 + patl + 1 + 2 + patl + 1
+        mat = np.empty((c, w), np.uint8)
+        mat[:, 0] = ord("@")
+        s0 = 2 + idw
+        mat[:, s0:s0 + patl] = seq
+        mat[:, s0 + patl] = nl
+        mat[:, s0 + patl + 1] = ord("+")
+        mat[:, s0 + patl + 2] = nl
+        q0 = s0 + patl + 3
+        mat[:, q0:q0 + patl] = ord("5")
+        mat[:, q0 + patl] = nl
+    else:
+        w = 1 + idw + 1 + patl + 1
+        mat = np.empty((c, w), np.uint8)
+        mat[:, 0] = ord(">")
+        mat[:, 2 + idw:2 + idw + patl] = seq
+        mat[:, -1] = nl
+    mat[:, 1] = ord("r")
+    mat[:, 2:1 + idw] = digits + ord("0")
+    mat[:, 1 + idw] = nl
+    return mat.tobytes()
 
 
 def write_reads_fast(path: str, codes: np.ndarray, numpat: int, patl: int,
@@ -96,48 +153,28 @@ def write_reads_fast(path: str, codes: np.ndarray, numpat: int, patl: int,
     """Reads at uniform start positions of `codes` (ACGT regions assumed),
     half of them reverse-complemented, each base mutated with probability
     errprob to one of the other three. Ids are 'r%09d', so every record
-    has the same length and a chunk is one byte matrix."""
+    has the same length and a chunk is one byte matrix.
+
+    The random draws are one sequential stream (they fix the bytes); the
+    calling thread makes them chunk by chunk while _FORMAT_THREADS workers
+    turn earlier chunks into records, which are written in read order."""
+    if numpat > 10**9:
+        raise ValueError("read ids have 9 digits: at most 10^9 reads")
     rng = np.random.default_rng(seed)
     numpos = len(codes) - patl + 1
-    idw = 10                   # 'r' + 9 digits
-    nl = np.uint8(ord("\n"))
-    with open(path, "wb") as f:
+    codes = np.ascontiguousarray(codes)
+    with open(path, "wb") as f, \
+            ThreadPoolExecutor(max_workers=_FORMAT_THREADS) as ex:
+        pending: collections.deque = collections.deque()
         for lo in range(0, numpat, chunk):
-            c = min(chunk, numpat - lo)
-            pos, inv, mut, delta = _chunk_draws(rng, c, numpos, patl,
-                                                errprob)
-            win = codes[pos[:, None] + np.arange(patl)]
-            win = np.where(inv[:, None], 3 - win[:, ::-1],
-                           win).astype(np.uint8)
-            win = np.where(mut, (win + delta) & 3, win)
-            seq = _REMAP[win]                       # [c, patl] bytes
-            ids = np.frombuffer(
-                b"".join(b"r%09d" % i for i in range(lo, lo + c)),
-                np.uint8).reshape(c, idw)
-            if fastq:
-                # @id\nseq\n+\nqual\n with the constant quality '5'
-                w = 1 + idw + 1 + patl + 1 + 2 + patl + 1
-                mat = np.empty((c, w), np.uint8)
-                mat[:, 0] = ord("@")
-                mat[:, 1:1 + idw] = ids
-                mat[:, 1 + idw] = nl
-                s0 = 2 + idw
-                mat[:, s0:s0 + patl] = seq
-                mat[:, s0 + patl] = nl
-                mat[:, s0 + patl + 1] = ord("+")
-                mat[:, s0 + patl + 2] = nl
-                q0 = s0 + patl + 3
-                mat[:, q0:q0 + patl] = ord("5")
-                mat[:, q0 + patl] = nl
-            else:
-                w = 1 + idw + 1 + patl + 1
-                mat = np.empty((c, w), np.uint8)
-                mat[:, 0] = ord(">")
-                mat[:, 1:1 + idw] = ids
-                mat[:, 1 + idw] = nl
-                mat[:, 2 + idw:2 + idw + patl] = seq
-                mat[:, -1] = nl
-            f.write(mat.tobytes())
+            draws = _chunk_draws(rng, min(chunk, numpat - lo), numpos, patl,
+                                 errprob)
+            pending.append(ex.submit(_format_reads, codes, lo, draws, patl,
+                                     fastq))
+            while len(pending) > _FORMAT_THREADS:
+                f.write(pending.popleft().result())
+        while pending:
+            f.write(pending.popleft().result())
     sys.stderr.write(f"reads {path}: {numpat} x {patl}bp\n")
 
 
@@ -179,13 +216,19 @@ def main(argv=None) -> int:
     g = os.path.join(args.outdir, "genome.fa")
     r = os.path.join(args.outdir, "reads.fq" if args.fastq else "reads.fa")
     if not os.path.exists(g):
+        t = time.perf_counter()
         write_random_genome(g, args.genome_bp, seed=args.seed,
                             num_fragments=args.fragments)
+        sys.stderr.write(f"genome_s {time.perf_counter() - t:.3f}\n")
     if not os.path.exists(r):
         from real_tpu_torch.io import fasta
+        t = time.perf_counter()
         codes, _ = fasta.parse_genome(g)
+        sys.stderr.write(f"genome_parse_s {time.perf_counter() - t:.3f}\n")
+        t = time.perf_counter()
         write_reads_fast(r, codes, args.reads, args.patl, args.errprob,
                          args.fastq, seed=args.seed + 1)
+        sys.stderr.write(f"reads_s {time.perf_counter() - t:.3f}\n")
     return 0
 
 
