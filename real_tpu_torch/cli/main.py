@@ -31,12 +31,29 @@ checks every step's scores and the result's invariants.
 
 -metrics writes the run's metrics as JSON after the records: the phase
 seconds (`phase_s`), the overflow reruns, the unit loop's account and
-wall_s, num_reads, reads_per_sec, mode and native_paths_active. -trace
-records matching and output with torch.profiler (CPU and CUDA activities on
-the card, the CPU alone under -device cpu) and writes one Chrome trace into
-the directory. -exchange <dir> splits the index build between the ranks of
-a multi-process run (parallel/multihost.py, which also runs one rank of
-such a run); in a single process it changes nothing. The runner's -mesh
+wall_s, num_reads, reads_per_sec, mode and native_paths_active. `spans`
+lists the job's spans (utils/spans.py), one object each: `id`, `name`,
+`parent` (the id of the span it ran in, null for `job`), `thread` (the
+native thread id) and `start_ns` / `end_ns` from the job's start. `job`
+runs from after the argument parse to before the metrics write; under it
+`parse.reads` (the read file's parse or store load), `genome.load` (with
+`genome.parse`, `genome.pack` and `genome.upload` for each text), `driver`
+(each match call; an overflow rerun's nested in its caller's) with `plan`
+(the shard planner and its memory query) and the phases of `phase_s`, and
+`output` (the records) with an `output.format` for each chunk formatted
+and an `output.write` for each chunk written, on the formatter and writer
+threads. A phase_s entry is the sum of its phase's spans (`rerun.` for
+those under a nested `driver`); wall_s runs from after `genome.load` to
+after `output`. `stream_wait_s` is the seconds the match loop spent
+waiting for the streaming reads' producer (io/pipeline.py; 0 when the
+reads stay resident; `streamed_batches` counts the batches). -trace
+records the whole job, from the read parse to the last record, with
+torch.profiler (CPU and CUDA activities on the card, the CPU alone under
+-device cpu) and writes one Chrome trace into the directory; each span of
+the job's own thread is a `user_annotation` there. -exchange <dir> splits
+the index build between the ranks of a multi-process run
+(parallel/multihost.py, which also runs one rank of such a run); in a
+single process it changes nothing. The runner's -mesh
 (cfg.use_mesh) spreads the index shards over the ranks instead
 (parallel/mesh.py): its metrics add the rank's `mesh` coordinates and the
 `mesh_gather` phase; the in-process mesh's add its `mesh` account (each
@@ -56,6 +73,7 @@ import time
 from typing import List, Optional
 
 from real_tpu_torch.config import RealConfig
+from real_tpu_torch.utils import spans
 
 
 def parse_args(argv: List[str]) -> RealConfig:
@@ -114,20 +132,44 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
     device = driver.resolve_device(cfg.device)
-    rs = readstore.parse_reads_cached(
-        cfg.patternfilename, cfg.quality_offset,
-        rewrite=cfg.rewritepatterns, use_native=cfg.native_host)
-    return run(cfg, rs, device)
+    with _profiled(cfg.trace, device):
+        return _job(cfg, device, lambda: readstore.parse_reads_cached(
+            cfg.patternfilename, cfg.quality_offset,
+            rewrite=cfg.rewritepatterns, use_native=cfg.native_host))
 
 
 def run(cfg: RealConfig, rs, device) -> int:
     """Match the parsed reads `rs` against cfg's texts on `device` and
-    write the records, then the -metrics file; -trace records the match
-    and the output. main() parses the whole read file, one rank of a
-    multi-process run only its slice (parallel/multihost.py), a rank of a
-    mesh run (cfg.use_mesh) the whole file again: run lays the mesh out
+    write the records, then the -metrics file, as one job: main() parses
+    the whole read file first, one rank of a multi-process run enters here
+    with only its slice (parallel/multihost.py), a rank of a mesh run
+    (cfg.use_mesh) with the whole file again: run lays the mesh out
     (driver.plan_mesh) and matches the rank's row slice, and only a row's
-    shard-0 rank writes records (the others leave their output empty)."""
+    shard-0 rank writes records (the others leave their output empty).
+    -trace opens the profiler here unless one is already recording."""
+    with _profiled("" if spans.profiling() else cfg.trace, device):
+        return _job(cfg, device, lambda: rs)
+
+
+def _job(cfg: RealConfig, device, reads) -> int:
+    """One job: the `job` span around the reads (`reads()`), the match and
+    the output, then the -metrics file with the job's spans."""
+    rec = spans.Recorder()
+    with rec.job():
+        metrics, num_reads, wall = _match_and_write(cfg, reads(), device)
+    if cfg.metrics_json:
+        _write_metrics(cfg, dict(
+            metrics, spans=rec.export(),
+            stream_wait_s=round(rec.counters.get("stream_wait_s", 0.0), 6)),
+            num_reads, wall)
+    return 0
+
+
+def _match_and_write(cfg: RealConfig, rs, device):
+    """The texts' load, the match and the records; returns the result's
+    metrics with the hand kernels' launches, the reads matched, and the
+    seconds from before the match (and a mesh run's layout) to after the
+    output (wall_s)."""
     from real_tpu_torch.cli.output import write_all_arrays, write_unique
     from real_tpu_torch.engine import driver
     from real_tpu_torch.ops import gather
@@ -148,32 +190,28 @@ def run(cfg: RealConfig, rs, device) -> int:
         # rs is the whole read set; this rank matches its row's slice
         mesh_plan = driver.plan_mesh(cfg, rs, texts, device)
         rs = rs.records(mesh_plan.lo, mesh_plan.hi)
-    with _profiled(cfg.trace, device):
-        if cfg.match_unique:
-            result = driver.run_match_unique(cfg, rs, texts, device,
-                                             mesh_plan=mesh_plan)
+    if cfg.match_unique:
+        result = driver.run_match_unique(cfg, rs, texts, device,
+                                         mesh_plan=mesh_plan)
+    else:
+        result = driver.run_match_all(cfg, rs, texts, device,
+                                      as_arrays=True, mesh_plan=mesh_plan)
+    with (contextlib.nullcontext(sys.stdout)
+          if cfg.outputfilename == "-"
+          else open(cfg.outputfilename, "w")) as out:
+        if mesh_plan is not None and mesh_plan.mesh.shard:
+            pass    # the row's shard-0 rank writes the row's records
+        elif cfg.match_unique:
+            unique = write_unique(out, rs, result, texts, cfg.scores,
+                                  cfg.native_host)
+            print(f"unique: {unique}", file=sys.stderr)
         else:
-            result = driver.run_match_all(cfg, rs, texts, device,
-                                          as_arrays=True,
-                                          mesh_plan=mesh_plan)
-        with (contextlib.nullcontext(sys.stdout)
-              if cfg.outputfilename == "-"
-              else open(cfg.outputfilename, "w")) as out:
-            if mesh_plan is not None and mesh_plan.mesh.shard:
-                pass    # the row's shard-0 rank writes the row's records
-            elif cfg.match_unique:
-                unique = write_unique(out, rs, result, texts, cfg.scores,
-                                      cfg.native_host)
-                print(f"unique: {unique}", file=sys.stderr)
-            else:
-                write_all_arrays(out, rs, result.cols, texts, cfg.scores,
-                                 cfg.native_host)
-    if cfg.metrics_json:
-        now = gather.launch_counts()
-        _write_metrics(cfg, dict(result.metrics, kernel_launches={
-            k: now[k] - launches[k] for k in now}), rs.num_reads,
-            time.perf_counter() - t0)
-    return 0
+            write_all_arrays(out, rs, result.cols, texts, cfg.scores,
+                             cfg.native_host)
+    now = gather.launch_counts()
+    return (dict(result.metrics, kernel_launches={
+        k: now[k] - launches[k] for k in now}), rs.num_reads,
+        time.perf_counter() - t0)
 
 
 def _write_metrics(cfg: RealConfig, metrics: dict, num_reads: int,
@@ -181,7 +219,7 @@ def _write_metrics(cfg: RealConfig, metrics: dict, num_reads: int,
     """The result's metrics plus real_tpu's five run keys (its -metrics
     file, real_tpu/cli/main.py), phase seconds to 3 decimals as there.
     `wall` runs from before the match (and a mesh run's layout) to after
-    the output."""
+    the output; `metrics` holds the job's spans and counters too."""
     m = dict(metrics, phase_s={k: round(v, 3)
                                for k, v in metrics["phase_s"].items()})
     m.update({"wall_s": round(wall, 3), "num_reads": num_reads,
@@ -206,7 +244,7 @@ def _profiled(trace_dir: str, device):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    on_card = device.type == "cuda"
+    on_card = torch.device(device).type == "cuda"
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU]
                  + ([ProfilerActivity.CUDA] if on_card else [])) as prof:

@@ -31,6 +31,7 @@ from real_tpu_torch import native
 from real_tpu_torch.engine.driver import HIT_DTYPES, MatchResult, TextFile
 from real_tpu_torch.engine.matchstep import REVERSE, STRAIGHT
 from real_tpu_torch.io.reads import IdView, ReadSet, reverse_complement
+from real_tpu_torch.utils import spans
 
 _REMAP = np.frombuffer(b"ACGTN", dtype=np.uint8)
 _CHUNK_RECORDS = 1 << 18
@@ -220,9 +221,22 @@ def _emit_chunks(out: IO, make_blob: Callable[[int, int], bytes], n: int,
     The native formatter is a ctypes call that releases the interpreter
     lock, so two chunks format at once while the writer overlaps the
     file, and the host holds a bounded number of chunk blobs instead of
-    the whole output. Blob order is the submit order."""
+    the whole output. Blob order is the submit order. Each chunk's
+    formatting is a span `output.format` and each write a span
+    `output.write`, children of the caller's span on whichever thread
+    runs them (utils/spans.py)."""
+    at = spans.here()
+
+    def fmt(s: int, e: int) -> bytes:
+        with spans.span("output.format", at):
+            return make_blob(s, e)
+
+    def write(b: bytes) -> None:
+        with spans.span("output.write", at):
+            _write_bytes(out, b)
+
     if n <= chunk:
-        _write_bytes(out, make_blob(0, n))
+        write(fmt(0, n))
         return
     q: "queue.Queue" = queue.Queue(maxsize=2)
     failed: List[BaseException] = []
@@ -234,7 +248,7 @@ def _emit_chunks(out: IO, make_blob: Callable[[int, int], bytes], n: int,
                 return
             if not failed:
                 try:
-                    _write_bytes(out, b)
+                    write(b)
                 except Exception as e:      # re-raised by the caller below
                     failed.append(e)
 
@@ -244,7 +258,7 @@ def _emit_chunks(out: IO, make_blob: Callable[[int, int], bytes], n: int,
         with ThreadPoolExecutor(max_workers=2) as ex:
             pending = collections.deque()
             for s in range(0, n, chunk):
-                pending.append(ex.submit(make_blob, s, min(s + chunk, n)))
+                pending.append(ex.submit(fmt, s, min(s + chunk, n)))
                 while len(pending) > 3:
                     q.put(pending.popleft().result())
             while pending:
@@ -256,6 +270,7 @@ def _emit_chunks(out: IO, make_blob: Callable[[int, int], bytes], n: int,
         raise failed[0]
 
 
+@spans.traced("output")
 def write_unique(out: IO, rs: ReadSet, result: MatchResult,
                  texts: List[TextFile], scores: bool,
                  use_native: bool = True) -> int:
@@ -274,6 +289,7 @@ def write_unique(out: IO, rs: ReadSet, result: MatchResult,
     return int(pids.size)
 
 
+@spans.traced("output")
 def write_all_arrays(out: IO, rs: ReadSet, cols, texts: List[TextFile],
                      scores: bool, use_native: bool = True) -> int:
     """matchAll output from sorted, deduped hit columns (pid, k, pos,

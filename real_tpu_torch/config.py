@@ -66,7 +66,7 @@ class RealConfig:
                                  # blocking device fetch exceeds this many
                                  # seconds (utils/watchdog.py); 0 disables
     trace: str = ""              # -trace <dir>: torch.profiler trace of
-                                 # matching and output (cli/main.py)
+                                 # the whole job (cli/main.py)
     metrics_json: str = ""       # -metrics <path>: the run's metrics as
                                  # JSON (phase seconds, counts, reads/s)
     build_exchange_dir: str = "" # -exchange <dir>: in a multi-process run

@@ -77,6 +77,7 @@ from real_tpu_torch.parallel import multihost, plan
 from real_tpu_torch.parallel.mesh import sharded_match_step
 from real_tpu_torch.scoring.scoring import Scoring, score_tables
 from real_tpu_torch.text.packed import PackedText, build_packed_text
+from real_tpu_torch.utils import spans
 from real_tpu_torch.utils.watchdog import watchdog
 
 MAX_FRAGMENTS_PER_FILE = 1 << 16   # UniqueMatchInfo fragmentbits
@@ -142,6 +143,7 @@ def split_oversized(name: str, codes: np.ndarray,
     return out
 
 
+@spans.traced("genome.load")
 def load_texts(cfg: RealConfig, device="cuda",
                split_limit: int = TEXT_SPLIT_LIMIT) -> List[TextFile]:
     """-t may be a file or a directory of *.fa files (getFileList.cpp).
@@ -279,7 +281,9 @@ def _text_usable(cfg: RealConfig, tf: TextFile) -> bool:
 
 
 class _Progress:
-    """stderr progress (with -v) + per-phase host-clock timers."""
+    """stderr progress (with -v) + per-phase host-clock timers: a phase
+    is a span of the job (utils/spans.py), and phase_s sums their
+    lengths."""
 
     def __init__(self, enabled: bool):
         self.enabled = enabled
@@ -293,12 +297,9 @@ class _Progress:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t = time.perf_counter()
-        try:
+        with spans.span(name) as s:
             yield
-        finally:
-            self.phase_s[name] = (self.phase_s.get(name, 0.0)
-                                  + time.perf_counter() - t)
+        self.phase_s[name] = self.phase_s.get(name, 0.0) + s.ns / 1e9
 
 
 def _check_run(cfg: RealConfig, texts: List[TextFile],
@@ -408,6 +409,7 @@ class SeqLayout:
                              for fi, _, _, sp in self.texts]) + "-"
 
 
+@spans.traced("plan")
 def _seq_layout(cfg: RealConfig, texts: List[TextFile], dev: torch.device,
                 *, reads: int = 0, extra_reserved: int = 0,
                 streaming: bool = False, exchange=None) -> SeqLayout:
@@ -541,6 +543,7 @@ class MeshPlan:
     reserved_bytes: int
 
 
+@spans.traced("plan")
 def plan_mesh(cfg: RealConfig, rs: reads_io.ReadSet,
               texts: List[TextFile], device="cuda") -> MeshPlan:
     """Lay out a mesh run of the whole read set `rs`; every rank of the
@@ -722,6 +725,7 @@ class LocalLayout:
         return f"{rank}local{len(self.cells)}:{grids}-"
 
 
+@spans.traced("plan")
 def _local_layout(cfg: RealConfig, texts: List[TextFile],
                   cells: List[torch.device], source: pipeline.BatchSource,
                   reads: int, survivor_cap: int) -> LocalLayout:
@@ -932,6 +936,7 @@ def validate_hits(cfg: RealConfig, cols) -> None:
         _require(np.isfinite(score).all(), "non-finite hit score")
 
 
+@spans.traced("driver")
 def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
                      texts: List[TextFile], device="cuda",
                      patid_filter: Optional[np.ndarray] = None,
@@ -1380,6 +1385,7 @@ class _HitAccumulator:
 _PENDING_MAX = 8
 
 
+@spans.traced("driver")
 def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
                   texts: List[TextFile], device="cuda",
                   patid_filter: Optional[np.ndarray] = None,

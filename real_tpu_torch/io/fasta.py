@@ -19,12 +19,15 @@ from typing import List, Tuple
 
 import numpy as np
 
+from real_tpu_torch.utils import spans
+
 # A,C,G,T,N -> 0..4 (acgtnMap.hpp:39-49); everything else -> 255 (dropped)
 _CODE_TABLE = np.full(256, 255, dtype=np.uint8)
 for _i, _c in enumerate(b"ACGTN"):
     _CODE_TABLE[_c] = _i
 
 
+@spans.traced("genome.parse")
 def parse_genome(path: str, use_native: bool = True
                  ) -> Tuple[np.ndarray, List[Tuple[str, int]]]:
     """Parse a genome FASTA file.

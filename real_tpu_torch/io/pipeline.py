@@ -25,7 +25,9 @@ Two modes, chosen by a device-memory budget over the PACKED bytes:
   that stream (record_stream) so their memory is not reused under it. No
   pinned buffer is ever written twice: each batch packs into fresh pinned
   tensors, and torch's pinned allocator holds a freed one back until the
-  copy that read it has finished.
+  copy that read it has finished. The match loop's time blocked waiting
+  for the producer adds up in the job's counter `stream_wait_s`
+  (utils/spans.py; -metrics).
 
 An in-process mesh (parallel/mesh.py LocalMesh) splits every batch over
 its dp rows: make_plans(row_align=cells) keeps each batch's row count
@@ -39,6 +41,7 @@ import ctypes
 import dataclasses
 import queue
 import threading
+import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -47,6 +50,7 @@ import torch
 from real_tpu_torch import bitpack, native
 from real_tpu_torch.io import reads as reads_io
 from real_tpu_torch.text.packed import u32
+from real_tpu_torch.utils import spans
 
 # host-side packed-batch cache cap (streaming mode): 4 GB covers ~150M
 # 100bp reads; beyond that later passes re-pack from the read set
@@ -366,7 +370,9 @@ class BatchSource:
         t.start()
         try:
             while True:
+                t0 = time.perf_counter()
                 item = q.get()
+                spans.add("stream_wait_s", time.perf_counter() - t0)
                 if item is None:
                     break
                 if isinstance(item, BaseException):

@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 
 from real_tpu_torch.io.reads import IdView, ReadSet, parse_reads
+from real_tpu_torch.utils import spans
 
 STORE_VERSION = 3
 
@@ -80,6 +81,7 @@ def load(path: str) -> Optional[ReadSet]:
         return None     # a damaged or half-written store: parse anew
 
 
+@spans.traced("parse.reads")
 def parse_reads_cached(path: str, quality_offset: int = 0,
                        rewrite: bool = True,
                        use_native: bool = True) -> ReadSet:

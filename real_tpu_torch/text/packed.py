@@ -23,6 +23,7 @@ import torch
 
 from real_tpu_torch import bitpack
 from real_tpu_torch.index.signatures import PAIR_SEGMENTS, SigConfig
+from real_tpu_torch.utils import spans
 
 MASK32 = 0xFFFFFFFF
 
@@ -88,36 +89,38 @@ class PackedText:
 
 def build_packed_text(codes: np.ndarray, ranges: List[Tuple[str, int]],
                       device) -> PackedText:
+    """The text's tables packed on the host (span `genome.pack`), then
+    copied to `device` (span `genome.upload`)."""
     n = int(codes.shape[0])
     if n >= 2**31:
         raise ValueError(
             "text file larger than 2^31 bases: split into per-fragment "
             "shards (positions are int32, like the reference's u32 "
             "Mask::pos, Mask.hpp:47)")
-    words = bitpack.pack_2bit(codes, pad_words=2)
-    nbits = bitpack.pack_bitmap(codes > 3, pad_words=2)
-    ncum = bitpack.bitmap_cum_popcount(nbits)
-    # 16-bit N-groups: split each 32-bit word into (hi, lo) halves
-    nw = len(nbits)
-    nb16 = np.empty(2 * nw, dtype=np.uint32)
-    nb16[0::2] = nbits >> np.uint32(16)
-    nb16[1::2] = nbits & np.uint32(0xFFFF)
-    ncum16 = np.zeros(2 * nw + 1, dtype=np.int64)
-    ncum16[1:] = np.cumsum(np.bitwise_count(nb16))
-    frag_offsets = np.array([off for _, off in ranges], dtype=np.int32)
+    with spans.span("genome.pack"):
+        words = bitpack.pack_2bit(codes, pad_words=2)
+        nbits = bitpack.pack_bitmap(codes > 3, pad_words=2)
+        ncum = bitpack.bitmap_cum_popcount(nbits)
+        # 16-bit N-groups: split each 32-bit word into (hi, lo) halves
+        nw = len(nbits)
+        nb16 = np.empty(2 * nw, dtype=np.uint32)
+        nb16[0::2] = nbits >> np.uint32(16)
+        nb16[1::2] = nbits & np.uint32(0xFFFF)
+        ncum16 = np.zeros(2 * nw + 1, dtype=np.int64)
+        ncum16[1:] = np.cumsum(np.bitwise_count(nb16))
+        has_n = bool(ncum16[-1] > 0)
+        ncum16 = ncum16.astype(np.int32)
+        frag_offsets = np.array([off for _, off in ranges], dtype=np.int32)
+        allt32 = _has_all_t_pair(codes, 32)
+        allt64 = _has_all_t_pair(codes, 64)
+    with spans.span("genome.upload"):
+        tables = [as_i32_tensor(a, device) for a in
+                  (words, nbits, ncum, frag_offsets, nb16, ncum16)]
     return PackedText(
-        words=as_i32_tensor(words, device),
-        nbits=as_i32_tensor(nbits, device),
-        ncum=as_i32_tensor(ncum, device),
-        frag_offsets=as_i32_tensor(frag_offsets, device),
-        n=n,
-        ranges=list(ranges),
-        nb16=as_i32_tensor(nb16, device),
-        ncum16=as_i32_tensor(ncum16.astype(np.int32), device),
-        allt32=_has_all_t_pair(codes, 32),
-        allt64=_has_all_t_pair(codes, 64),
-        has_n=bool(ncum16[-1] > 0),
-    )
+        words=tables[0], nbits=tables[1], ncum=tables[2],
+        frag_offsets=tables[3], n=n, ranges=list(ranges),
+        nb16=tables[4], ncum16=tables[5], allt32=allt32, allt64=allt64,
+        has_n=has_n)
 
 
 def _run_all(x: np.ndarray, w: int) -> np.ndarray:

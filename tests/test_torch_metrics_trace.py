@@ -14,12 +14,12 @@ from real_tpu_torch.cli import main as t_main
 from tests import ab_util
 
 # keys the port's metrics add to real_tpu's: the unit loop's account of
-# itself (engine/driver.py _loop_metrics) and the hand kernels' launches
-# (cli/main.py)
+# itself (engine/driver.py _loop_metrics), the hand kernels' launches, and
+# the job's spans and streaming wait (cli/main.py)
 PORT_EXTRA_KEYS = {"units", "units_skipped", "units_dispatched",
                    "reserved_bytes", "plans", "source_resident",
                    "resident_read_bytes", "streamed_batches",
-                   "kernel_launches"}
+                   "kernel_launches", "spans", "stream_wait_s"}
 # phase keys only the port has: real_tpu fills its metrics before the
 # overflow rerun, the port adds the rerun's phases as rerun.<phase>
 RERUN_PREFIX = "rerun."
