@@ -7,11 +7,12 @@
     python3 chip_smoke.py --cells       # (k)'s runs of a cell per card alone
     python3 chip_smoke.py --grch        # phase (m) alone
     python3 chip_smoke.py --fly         # phase (n) alone
+    python3 chip_smoke.py --pack        # the genome pack (4b) alone, timed
 
 Drives the port's four paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates in its 32-bit
-and its 64-bit entry, verify_windows, gather_rowsum) against its plain
-PyTorch version, and holds every entry of the native host library
+and its 64-bit entry, verify_windows, gather_rowsum, pack_text) against its
+plain version, and holds every entry of the native host library
 (native/readpack.cpp) against its plain NumPy version:
 
   matchUnique  bench.py's size: a 4.6 Mbp random genome (E. coli scale),
@@ -70,7 +71,11 @@ cell per card and the CLI's default mesh of every card against them, and
 dryrun_multichip over every card; it needs more than one card. With
 --grch it runs phases 1-2 and (m) alone, then (m)'s kernel times; with
 --fly phases 1-2 and (n) alone (its data made first), then (n)'s kernel
-times.
+times; with --pack phases 1-2 and 4b on every path's genome (the
+matchUnique, yeast, chr21 and fly genomes from their generators and seeds,
+and a random text of 2^31 - 64 bases with N runs, the largest sub-text
+split_oversized makes, packed in 4 chunks), then 4b's times at chr21's and
+fly's sizes.
 
 Phases:
 
@@ -100,6 +105,25 @@ Phases:
                 (idx < 0, = mw-1, >= mw, mw < w, top bit, int32 wrap, mw
                 not a multiple of 4, windows that end at mw, a table base
                 that is not 16 B aligned, w 1, 3, 5, 8, 16)
+  4b. pack      pack_text (csrc/pack_text.cu) against pack_tables_ref on
+                the card, every table bit for bit and the three flags: the
+                crafted texts of tools/packcases.py (lengths 0-1,000 around
+                the words' edges, N runs across word edges, all-T segment
+                pairs at seedl 32 alone, at 64, at none, in the last
+                window and one base past it) whole and in chunks of 32 and
+                96 bases, then every path's genome (matchUnique, yeast,
+                chr21 here; grch's two sub-texts in (m), the 2.07 Gbp one
+                in 4 chunks; fly's genome in (n)); one launch set a text
+                and a synchronize after each. Every path's timed runs
+                count K3's launches, one a text (the CLI's -metrics
+                kernel_launches, run_once's the same). Timed at chr21's
+                and fly's sizes (after the kernel times of the full run
+                and of --fly, and under --pack): the launch
+                set on codes already on the card (device and
+                host-inclusive us, as in 15), the wrapper's whole call
+                (upload, launches, flags) and the codes' upload alone on
+                the host clock, the plain version on the host, and the
+                bytes bound (codes read once, tables written once)
   5. unique     load -> run_match_unique -> write_unique through the
                 native host entries (reads parsed anew, as with -R 0),
                 warmup then timed; reads/s, phase seconds, overflow reruns,
@@ -342,6 +366,10 @@ GATHER_SRC = "real_tpu_torch/csrc/gather_windows.cu"
 GATHER_REPLACES = "real_tpu/ops/pallas_gather.py:71"
 ROWSUM_SRC = "real_tpu_torch/csrc/gather_rowsum.cu"
 ROWSUM_REPLACES = "benchmarks/pallasbench.py:101"
+PACK_SRC = "real_tpu_torch/csrc/pack_text.cu"
+PACK_REPLACES = "none (real_tpu packs the genome on the host)"
+# per text that phase 4b checked: its launches and largest error
+PACK_CHECKS = {}
 
 
 def log(msg: str) -> None:
@@ -363,7 +391,7 @@ def card_phase(torch):
 def build_phase():
     from real_tpu_torch import native
     from real_tpu_torch.ops import cuda_build
-    names = ("gather_windows", "gather_rowsum")
+    names = ("gather_windows", "gather_rowsum", "pack_text")
 
     def build_native():
         t = time.perf_counter()
@@ -729,6 +757,162 @@ def rowsum_kernel_phase(torch, cases, dev):
     return errs
 
 
+def pack_check(torch, tag, codes, dev) -> int:
+    """pack_text on the card against pack_tables_ref: every table bit for
+    bit, the flags, one launch set (gather.launch_counts); raises on any
+    difference. Returns the largest absolute difference of a table entry
+    (0), kept with the launches in PACK_CHECKS[tag]."""
+    from real_tpu_torch.ops import gather, pack
+    before = gather.launch_counts()["pack_text"]
+    t = time.perf_counter()
+    got = pack.pack_text(codes, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches = gather.launch_counts()["pack_text"] - before
+    t = time.perf_counter()
+    want = pack.pack_tables_ref(codes)
+    ref_s = time.perf_counter() - t
+    err, bad = 0, []
+    for f, a, b in zip(want._fields, want, got):
+        if isinstance(a, np.ndarray):
+            d = np.abs(a.view(np.int32).astype(np.int64)
+                       - b.cpu().numpy().astype(np.int64))
+            if d.size and d.max():
+                err = max(err, int(d.max()))
+                bad.append(f)
+        elif a != b:
+            bad.append(f)
+    log(f"[pack] {tag}: n={len(codes)}, has_n/allt32/allt64 "
+        f"{int(got.has_n)}{int(got.allt32)}{int(got.allt64)}, launches "
+        f"{launches}, card {card_s * 1e3:.2f} ms, host pack "
+        f"{ref_s * 1e3:.2f} ms, max abs err {err}: "
+        + ("equal" if not bad else f"DIFFERS in {bad}"))
+    if bad or launches != 1:
+        raise AssertionError(f"(4b) {tag}: pack_text differs from "
+                             f"pack_tables_ref in {bad}, {launches} launches")
+    PACK_CHECKS[tag] = {"launches": launches, "max_abs_err": err}
+    del got
+    torch.cuda.empty_cache()      # the phases after it plan the card anew
+    return err
+
+
+def pack_phase(torch, texts, dev) -> int:
+    """Phase 4b: the crafted texts whole and in chunks of 32 and 96 bases,
+    then `texts` ((tag, codes) pairs), each through pack_check."""
+    from real_tpu_torch.ops import pack
+    from real_tpu_torch.tools import packcases
+    cases = packcases.crafted_texts()
+    for chunk in (pack.CHUNK_BASES, 32, 96):
+        saved, pack.CHUNK_BASES = pack.CHUNK_BASES, chunk
+        try:
+            for c in cases:
+                pack_check(torch, f"{c.name} (chunks of {chunk})", c.codes,
+                           dev)
+                got = pack.pack_tables_ref(c.codes)
+                if c.flags not in (None, (got.has_n, got.allt32,
+                                          got.allt64)):
+                    raise AssertionError(f"(4b) {c.name}: flags {c.flags} "
+                                         "crafted, the plain version gives "
+                                         "others")
+        finally:
+            pack.CHUNK_BASES = saved
+    for tag, codes in texts:
+        pack_check(torch, tag, codes, dev)
+    log(f"[pack] {3 * len(cases)} crafted packs and {len(texts)} genomes "
+        "equal to the plain version")
+    return 3 * len(cases) + len(texts)
+
+
+def pack_times(torch, texts, dev, launches) -> list:
+    """4b's times for each (tag, codes): the launch set on codes already on
+    the card (time_ms), the wrapper's whole call and the codes' upload on
+    the host clock (median of 5, synchronized), the plain version (median
+    of 3), and the bytes bound; the K3 entries of the kernels line, with
+    launches[tag] (the path's timed run's count in the full run,
+    pack_check's under --pack) and pack_check's measured error."""
+    from real_tpu_torch.ops import pack
+    from real_tpu_torch.tools.cudatime import time_ms
+    out = []
+    for tag, codes in texts:
+        n = len(codes)
+        host = torch.from_numpy(codes)
+        buf = torch.empty(-(-n // 32) * 32, dtype=torch.uint8, device=dev)
+        buf[:n].copy_(host)
+        t, flags = pack.empty_tables(n, buf.device)
+
+        def kern():
+            pack.launch_chunk(t, n, buf, 0, n, flags)
+            pack.launch_finish(t, n, flags)
+
+        def clock(fn, reps):
+            secs = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return float(np.median(secs)) * 1e3
+
+        ms, ms_host = time_ms(kern)
+        whole_ms = clock(lambda: pack.pack_text(codes, dev), 5)
+        upload_ms = clock(lambda: buf[:n].copy_(host), 5)
+        plain_ms = clock(lambda: pack.pack_tables_ref(codes), 3)
+        nbytes = n + 4 * sum(x.numel() for x in t[:5])
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[times] pack_text/{tag}: n={n}, device us (host-inclusive "
+            f"us): kernel {ms * 1e3:.2f} ({ms_host * 1e3:.2f}), bound "
+            f"{bound_ms * 1e3:.3f} ({nbytes} B); host clock: the wrapper's "
+            f"call {whole_ms * 1e3:.1f} us, the codes' upload "
+            f"{upload_ms * 1e3:.1f} us, the plain version "
+            f"{plain_ms * 1e3:.1f} us")
+        out.append({"name": f"pack_text/{tag}", "route": "cuda",
+                    "source": PACK_SRC, "replaces": PACK_REPLACES,
+                    "launches": int(launches[tag]),
+                    "max_abs_err": PACK_CHECKS[tag]["max_abs_err"], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": None,
+                    "host_ms": ms_host, "call_ms": whole_ms,
+                    "upload_ms": upload_ms})
+        del buf, t, flags
+    return out
+
+
+def pack_only(torch, dev) -> list:
+    """--pack: phase 4b on every path's genome and the largest sub-text,
+    then its times at chr21's and fly's sizes."""
+    from real_tpu_torch.engine import driver
+    from real_tpu_torch.io import fasta
+    from real_tpu_torch.ops import pack
+    from real_tpu_torch.tools import gendata
+    texts = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pack_") as tmp:
+        for pc in (UNIQUE, YEAST, CHR21):
+            t = time.perf_counter()
+            texts.append((pc.name, make_genome(tmp, pc)[1]))
+            log(f"[pack] {pc.name} genome made and parsed in "
+                f"{time.perf_counter() - t:.1f}s")
+        F = gendata.FLY
+        g = os.path.join(tmp, "fly_genome.fa")
+        gendata.write_random_genome(g, F.genome_n, seed=F.seed)
+        texts.append(("fly", fasta.parse_genome(g)[0]))
+    pack_phase(torch, texts, dev)
+    kernels = pack_times(torch, texts[2:], dev,
+                         {tag: PACK_CHECKS[tag]["launches"]
+                          for tag, _ in texts[2:]})
+    t = time.perf_counter()
+    rng = np.random.default_rng(31)
+    big = rng.integers(0, 4, driver.TEXT_SPLIT_LIMIT, dtype=np.uint8)
+    for start in range(7, len(big), 97_000_031):
+        big[start:start + 1_000_003] = 4     # N runs, none word aligned
+    big[-70:] = 3                            # all-T pairs in the last windows
+    log(f"[pack] a {len(big)}-base text made in "
+        f"{time.perf_counter() - t:.1f}s")
+    pack_check(torch, f"split_limit ({-(-len(big) // pack.CHUNK_BASES)} "
+               "chunks)", big, dev)
+    return kernels
+
+
 def run_once(cfg, reads_path, device, caps=None):
     """One timed pass of a path through its entry points: (read set,
     texts, result, record bytes, record count, phase seconds). The reads
@@ -738,8 +922,10 @@ def run_once(cfg, reads_path, device, caps=None):
     from real_tpu_torch.cli.output import write_all_arrays, write_unique
     from real_tpu_torch.engine import driver
     from real_tpu_torch.io import reads as reads_io
+    from real_tpu_torch.ops import gather
     import torch
     ph = {}
+    launches = gather.launch_counts()
     on_card = torch.device(device).type == "cuda"
     cards = range(torch.cuda.device_count()) if on_card else ()
     if on_card:
@@ -782,6 +968,9 @@ def run_once(cfg, reads_path, device, caps=None):
                                    cfg.native_host)
     ph["output"] = time.perf_counter() - t
     ph["total"] = time.perf_counter() - t0
+    now = gather.launch_counts()
+    result.metrics["kernel_launches"] = {k: now[k] - launches[k]
+                                         for k in now}
     return rs, texts, result, buf.getvalue(), records, ph
 
 
@@ -838,7 +1027,8 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
     rs, texts, result, blob, records, ph = run_once(cfg, r, dev)
     torch.cuda.synchronize()
     launches = {"probe_candidates": gather.probe_candidates.launches,
-                "verify_windows": gather.verify_windows.launches}
+                "verify_windows": gather.verify_windows.launches,
+                "pack_text": gather.launch_counts()["pack_text"]}
     reruns = dict(gather.gather_word_windows.launches_by_w)
     log(f"{tag} {pc.num_reads} reads in {ph['total']:.3f}s = "
         f"{pc.num_reads / ph['total']:.1f} reads/s end to end "
@@ -857,6 +1047,7 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{pc.name} path made no {name} launch")
+    _require_packs(f"{pc.name} path", launches["pack_text"], len(texts))
     share = truth_share(pc, result, truth)
     log(f"{tag} truth share (reads with <= {pc.truth_kmax} mutations "
         f"reported at their true position): {share:.5f}")
@@ -1085,6 +1276,13 @@ class _StopAfterUnit(Exception):
     first unit."""
 
 
+def _require_packs(tag, count, texts) -> None:
+    """K3 launched once for each text the run loaded."""
+    if count != texts:
+        raise AssertionError(f"{tag}: {count} pack_text launch sets for "
+                             f"{texts} text(s)")
+
+
 def _require_same_records(tag, blob, blob_a):
     if blob != blob_a:
         raise AssertionError(f"chr21 ({tag}): records differ from the "
@@ -1140,7 +1338,9 @@ def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
             f"{k}={v:.3f}s" for k, v in m["phase_s"].items()))
     log(f"[chr21] (b) {run_account(torch, m)}; launches probe_candidates "
         f"{gather.probe_candidates.launches}, verify_windows "
-        f"{gather.verify_windows.launches}")
+        f"{gather.verify_windows.launches}, pack_text "
+        f"{m['kernel_launches']['pack_text']}")
+    _require_packs("chr21 (b)", m["kernel_launches"]["pack_text"], 1)
     if m["units_dispatched"] != 3 or m["source_resident"] \
             or m["streamed_batches"] < 3 * steps_per_unit:
         raise AssertionError("chr21 (b): not 3 units over a streaming source")
@@ -1252,7 +1452,10 @@ def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
         rs, texts, res, blobs[seedl], records, ph = run_once(cfg, r_wide, dev)
         launches[wpc.name] = {
             "probe_candidates": gather.probe_candidates.launches_wide,
-            "verify_windows": gather.verify_windows.launches}
+            "verify_windows": gather.verify_windows.launches,
+            "pack_text": res.metrics["kernel_launches"]["pack_text"]}
+        _require_packs(f"chr21 (e) -l {seedl}",
+                       launches[wpc.name]["pack_text"], len(texts))
         share = truth_share(wpc, res, truth[:WIDE_READS])
         _one_device(wpc.name, cfg, rs, res, ph)
         log(f"[chr21] (e) -l {seedl}: {WIDE_READS} reads in "
@@ -1378,7 +1581,10 @@ def two_text_phase(torch, pc: PathCfg, codes, r, r_small, tmp, dev):
             f"{m['units_dispatched']}, {records} records ({int((fid == 1).sum())}"
             f" in file 1) in {ph['total']:.3f}s; launches probe_candidates "
             f"{gather.probe_candidates.launches}, verify_windows "
-            f"{gather.verify_windows.launches}")
+            f"{gather.verify_windows.launches}, pack_text "
+            f"{m['kernel_launches']['pack_text']}")
+        _require_packs(f"{mode} (h)", m["kernel_launches"]["pack_text"],
+                       len(texts))
         if len(texts) != 2 or m["units_dispatched"] != 2 \
                 or not (fid == 1).any() or not (fid == 0).any() \
                 or gather.probe_candidates.launches <= 0:
@@ -1578,11 +1784,13 @@ def mesh_run(torch, tag, pc: PathCfg, g, r, shards, world, want, tmp):
             f"units {m['units_dispatched']}, launches probe_candidates "
             f"{k['probe_candidates']} (64-bit {k['probe_candidates_wide']}),"
             f" verify_windows {k['verify_windows']}, gather_word_windows "
-            f"{k['gather_word_windows']}; {m['mesh_gathers']} gathers, "
+            f"{k['gather_word_windows']}, pack_text {k['pack_text']}; "
+            f"{m['mesh_gathers']} gathers, "
             f"{gather_ms:.3f} ms each; {secs[rank]:.2f}s start to exit, "
             f"wall_s {m['wall_s']}, phase_s {m['phase_s']}")
         if card != f"cuda:{rank % cards}":
             raise AssertionError(f"(j) {tag}: rank {rank} ran on {card}")
+        _require_packs(f"(j) {tag}: rank {rank}", k["pack_text"], 1)
         if m["mesh"] != {"n_dp": n_dp, "n_shard": n_shard,
                          "dp": rank // n_shard, "shard": rank % n_shard}:
             raise AssertionError(f"(j) {tag}: rank {rank} at {m['mesh']}")
@@ -1628,6 +1836,8 @@ def local_mesh_run(torch, tag, pc: PathCfg, g, r, shards, cells, want):
         raise AssertionError(f"(k) {tag}: records differ from the path's "
                              "one-device records")
     m = res.metrics
+    # the text is packed once, then its tables replicated to the cells
+    _require_packs(f"(k) {tag}", m["kernel_launches"]["pack_text"], 1)
     mesh = m["mesh"]
     if mesh["grids"] != [[0, n_dp, n_shard]] \
             or mesh["devices"] != [str(c) for c in cells]:
@@ -1655,7 +1865,8 @@ def local_mesh_run(torch, tag, pc: PathCfg, g, r, shards, cells, want):
         f"({gather_s / max(gathers, 1) * 1e3:.4f} ms each); peak by card "
         f"{m['peak_bytes_by_card']} B; phase_s "
         + " ".join(f"{k}={v:.3f}s" for k, v in m["phase_s"].items()))
-    log(f"[localmesh] {tag}: cell launches " + "; ".join(
+    log(f"[localmesh] {tag}: pack_text {m['kernel_launches']['pack_text']}"
+        "; cell launches " + "; ".join(
         f"{c}: probe_candidates {k['probe_candidates']} (64-bit "
         f"{k['probe_candidates_wide']}), verify_windows "
         f"{k['verify_windows']}, gather_word_windows "
@@ -1875,7 +2086,10 @@ def rank_local_run(torch, tag, pc: PathCfg, g, r, shards, world, cells,
             f"{gathers} gathers; peak by card {peaks} B (-f {fracmem}); "
             "phase_s " + " ".join(f"{k}={v:.3f}s"
                                   for k, v in m["phase_s"].items()))
-        log(f"[ranklocal] {tag}, rank {rank}: cell launches " + "; ".join(
+        packs = m["kernel_launches"]["pack_text"]
+        _require_packs(f"(l) {tag}: rank {rank}", packs, 1)
+        log(f"[ranklocal] {tag}, rank {rank}: pack_text {packs}; cell "
+            "launches " + "; ".join(
             f"{c}: probe_candidates {k['probe_candidates']} (64-bit "
             f"{k['probe_candidates_wide']}), verify_windows "
             f"{k['verify_windows']}, gather_word_windows "
@@ -1974,8 +2188,10 @@ def phase_resources(tag, tmp, host_bytes, disk_bytes):
             f"{disk} B; needs {host_bytes:.0f} and {disk_bytes:.0f} B)")
 
 
-def grch_data(tmp):
-    """The genome (3.1 Gbp in 24 fragments) and the reads, timed."""
+def grch_data(torch, tmp, dev):
+    """The genome (3.1 Gbp in 24 fragments) and the reads, timed; the
+    genome's sub-texts through phase 4b's pack_check."""
+    from real_tpu_torch.engine import driver
     from real_tpu_torch.io import fasta
     from real_tpu_torch.tools import gendata
     G = gendata.GRCH
@@ -1985,12 +2201,14 @@ def grch_data(tmp):
                                 num_fragments=G.fragments)
     genome_s = time.perf_counter() - t
     t = time.perf_counter()
-    codes, _ = fasta.parse_genome(g)
+    codes, ranges = fasta.parse_genome(g)
     parse_s = time.perf_counter() - t
     gendata.write_reads_fast(r, codes, GRCH_READS, G.patl, G.errprob,
                              G.fastq, seed=G.seed + 1)
-    del codes
     reads_s = time.perf_counter() - t
+    for name, sub, _ in driver.split_oversized(g, codes, ranges):
+        pack_check(torch, f"grch {os.path.basename(name)}", sub, dev)
+    del codes
     log(f"[grch] data: genome {G.genome_n} bp in {G.fragments} fragments "
         f"(seed {G.seed}, {os.path.getsize(g)} B) in {genome_s:.1f}s; "
         f"{GRCH_READS} reads x {G.patl} bp FASTA (errprob {G.errprob}, seed "
@@ -2065,11 +2283,13 @@ def grch_cli_run(torch, g, r, tmp):
         f"against the -f 0.75 budget of {budget:.0f} B (card {total} B); "
         f"host peak RSS {rss} B; launches "
         f"gather_word_windows {k['gather_word_windows']}, verify_windows "
-        f"{k['verify_windows']}, probe_candidates {k['probe_candidates']}; "
-        f"overflow_rerun_reads {m['overflow_rerun_reads']}")
+        f"{k['verify_windows']}, probe_candidates {k['probe_candidates']}, "
+        f"pack_text {k['pack_text']}; overflow_rerun_reads "
+        f"{m['overflow_rerun_reads']}")
     if len(m["plans"]) != 2:
         raise AssertionError(f"grch: {len(m['plans'])} texts, not the two "
                              "sub-texts of the split")
+    _require_packs("grch (m-a)", k["pack_text"], 2)
     if k["gather_word_windows"] <= 0 or k["verify_windows"] <= 0:
         raise AssertionError("grch (m-a): a K1 entry of the bisection route "
                              "made no launch")
@@ -2248,7 +2468,7 @@ def grch_phase(torch, dev):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grch_") as tmp:
         phase_resources("grch", tmp, GRCH_HOST_BYTES, GRCH_DISK_BYTES)
-        g, r = grch_data(tmp)
+        g, r = grch_data(torch, tmp, dev)
         log(f"[grch] card free before (m-a): {torch.cuda.mem_get_info()[0]} "
             "B")
         blob_a, m_a = grch_cli_run(torch, g, r, tmp)
@@ -2257,9 +2477,12 @@ def grch_phase(torch, dev):
         # (m-b) in-process: every unit bisection-free (probe_candidates)
         cfg = RealConfig(textfilename=g, patternfilename=r,
                          outputfilename="-", totalkmax=5)
+        gather.reset_launch_counts()
         t = time.perf_counter()
         texts = driver.load_texts(cfg, dev)
         load_s = time.perf_counter() - t
+        packs_b = gather.launch_counts()["pack_text"]
+        _require_packs("grch (m-b)", packs_b, len(texts))
         nobis, shards = probe_route_shards(cfg, texts, GRCH_READS)
         log(f"[grch] (m-b) -shards {nobis} is the fewest at which no unit "
             f"bisects; -shards {shards} the fewest at which, besides, the "
@@ -2282,7 +2505,7 @@ def grch_phase(torch, dev):
             patid_filter=np.arange(min(GRCH_PROBE_READS, rs.num_reads)))
         torch.cuda.synchronize()
         match_s = time.perf_counter() - t
-        launches_b = gather.launch_counts()
+        launches_b = {**gather.launch_counts(), "pack_text": packs_b}
         peak_b = torch.cuda.max_memory_allocated() - base
         t = time.perf_counter()
         buf = io.BytesIO()
@@ -2360,12 +2583,14 @@ def grch_phase(torch, dev):
     k_a = m_a["kernel_launches"]
     launches = {"grch": {"gather_windows": k_a["gather_word_windows"],
                          "verify_windows": k_a["verify_windows"],
-                         "probe_candidates": k_a["probe_candidates"]},
+                         "probe_candidates": k_a["probe_candidates"],
+                         "pack_text": k_a["pack_text"]},
                 "grch_m_b": {"gather_windows":
                              launches_b["gather_word_windows"],
                              "verify_windows": launches_b["verify_windows"],
                              "probe_candidates":
-                             launches_b["probe_candidates"]}}
+                             launches_b["probe_candidates"],
+                             "pack_text": launches_b["pack_text"]}}
     log(f"[grch] phase (m) {time.perf_counter() - t_phase:.1f}s")
     return sites, errs, fused, ferrs, fouts, launches
 
@@ -2495,10 +2720,12 @@ def fly_cli_run(torch, g, r, tmp, nbatches):
         f"budget of {budget:.0f} B (card {total} B); host peak RSS {rss} B; "
         f"launches gather_word_windows {k['gather_word_windows']}, "
         f"verify_windows {k['verify_windows']}, probe_candidates "
-        f"{k['probe_candidates']}; output {os.path.getsize(out)} B")
+        f"{k['probe_candidates']}, pack_text {k['pack_text']}; output "
+        f"{os.path.getsize(out)} B")
     if k["gather_word_windows"] <= 0 or k["verify_windows"] <= 0:
         raise AssertionError("fly (n-a): a K1 entry of the bisection route "
                              "made no launch")
+    _require_packs("fly (n-a)", k["pack_text"], 1)
     if peak > budget:
         raise AssertionError(f"fly (n-a): peak {peak} B over the budget of "
                              f"{budget:.0f} B")
@@ -2527,6 +2754,7 @@ def fly_phase(torch, dev, data: FlyData):
     cases on fly's own tables, their errors and outputs, and the launches
     of each route, for the times phase."""
     from real_tpu_torch.config import RealConfig
+    from real_tpu_torch.io import fasta
     from real_tpu_torch.tools import gendata
     F = gendata.FLY
     t_phase = time.perf_counter()
@@ -2536,6 +2764,7 @@ def fly_phase(torch, dev, data: FlyData):
     tmp = data.tmp
     phase_resources("fly", tmp, FLY_HOST_BYTES, FLY_DISK_BYTES
                     - os.path.getsize(g) - os.path.getsize(r))
+    pack_check(torch, "fly", fasta.parse_genome(g)[0], dev)
     nbatches = -(-F.numpat // RealConfig.batch_size)
 
     with ThreadPoolExecutor(max_workers=2) as ex:
@@ -2573,9 +2802,12 @@ def _fly_runs(torch, dev, g, r, tmp, nbatches, ex):
     store_bytes = sum(e.stat().st_size for e in os.scandir(store))
     cfg = RealConfig(textfilename=g, patternfilename=r,
                      outputfilename="-", totalkmax=5)
+    gather.reset_launch_counts()
     t = time.perf_counter()
     texts = driver.load_texts(cfg, dev)
     load_s = time.perf_counter() - t
+    packs_b = gather.launch_counts()["pack_text"]
+    _require_packs("fly (n-b)", packs_b, len(texts))
     t = time.perf_counter()
     rs = readstore.parse_reads_cached(r)
     store_s = time.perf_counter() - t
@@ -2602,7 +2834,7 @@ def _fly_runs(torch, dev, g, r, tmp, nbatches, ex):
     finally:
         driver._make_source = make_source
     match_s = time.perf_counter() - t
-    launches_b = gather.launch_counts()
+    launches_b = {**gather.launch_counts(), "pack_text": packs_b}
     peak_b = torch.cuda.max_memory_allocated() - base
     cache_bytes = sources[0]._host_cache_bytes
     cached = len(sources[0]._host_cache)
@@ -2698,7 +2930,8 @@ def _fly_runs(torch, dev, g, r, tmp, nbatches, ex):
                                       dev)
     launches = {tag: {"gather_windows": k["gather_word_windows"],
                       "verify_windows": k["verify_windows"],
-                      "probe_candidates": k["probe_candidates"]}
+                      "probe_candidates": k["probe_candidates"],
+                      "pack_text": k["pack_text"]}
                 for tag, k in (("fly", m_a["kernel_launches"]),
                                ("fly_n_b", launches_b))}
     return sites, errs, fused, ferrs, fouts, launches
@@ -2914,6 +3147,8 @@ def _drive(torch, dev, fly) -> list:
         gu, codes_u = make_genome(tmp, unique)
         ga, codes_a = make_genome(tmp, yeast)
         gc21, codes_c = make_genome(tmp, chr21)
+        pack_phase(torch, [(unique.name, codes_u), (yeast.name, codes_a),
+                           (chr21.name, codes_c)], dev)
         ru, ru_small, ru_warm, truth_u = make_reads(tmp, unique, codes_u)
 
         sites, fused, big_table = [], [], None
@@ -3010,13 +3245,25 @@ def _drive(torch, dev, fly) -> list:
     f_sites, f_errs, f_fused, f_ferrs, f_fouts, launches_f = fly_phase(
         torch, dev, fly)
     rlaunches = gatherbench_phase(big_table.numel())
-    return times_phase(
+    kernels = times_phase(
         torch, sites + g_sites + f_sites, {**errs, **g_errs, **f_errs},
         fused + g_fused + f_fused, {**ferrs, **g_ferrs, **f_ferrs},
         {**fouts, **g_fouts, **f_fouts},
         {unique.name: launches_u, yeast.name: launches_a,
          chr21.name: launches_c, **launches_w, **launches_g, **launches_f},
         rcases, rerrs, rlaunches)
+    return kernels + fly_pack_times(
+        torch, dev, fly, launches_f, [(chr21.name, codes_c)],
+        {chr21.name: launches_c["pack_text"]})
+
+
+def fly_pack_times(torch, dev, fly, launches_f, texts, launches) -> list:
+    """K3's entries of the kernels line for `texts` and fly's genome, each
+    with the launches of its path's timed run."""
+    from real_tpu_torch.io import fasta
+    return pack_times(torch,
+                      [*texts, ("fly", fasta.parse_genome(fly.genome)[0])],
+                      dev, {**launches, "fly": launches_f["fly"]["pack_text"]})
 
 
 def grch_only(torch, dev) -> list:
@@ -3032,8 +3279,9 @@ def fly_only(torch, dev) -> list:
     with fly_data(background=False) as fly:
         sites, errs, fused, ferrs, fouts, launches = fly_phase(torch, dev,
                                                                fly)
+        k3 = fly_pack_times(torch, dev, fly, launches, [], {})
     return times_phase(torch, sites, errs, fused, ferrs, fouts, launches,
-                       [], {}, {})
+                       [], {}, {}) + k3
 
 
 def _card_cell_runs(torch, unique, gu, ru, blob_u, chr21, gc21, rc, blob_c):
@@ -3134,10 +3382,12 @@ def main() -> int:
         kernels = grch_only(torch, dev)
     elif "--fly" in sys.argv:
         kernels = fly_only(torch, dev)
+    elif "--pack" in sys.argv:
+        kernels = pack_only(torch, dev)
     else:
         kernels = drive(torch, dev)
     log("kernels: gather_windows, probe_candidates (32-bit and 64-bit "
-        "entries), verify_windows, gather_rowsum")
+        "entries), verify_windows, gather_rowsum, pack_text")
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,7 +59,8 @@ single process it changes nothing. The runner's -mesh
 `mesh_gather` phase; the in-process mesh's add its `mesh` account (each
 text's grid, the cells' devices, each cell's kernel launches) and the same
 phase. Every metrics file holds `kernel_launches`, the hand
-kernels' launches in the run (ops/gather.py), which stay 0 on the CPU.
+kernels' launches in the run, the genome pack's (`pack_text`, one a text)
+among them (ops/gather.py launch_counts), which stay 0 on the CPU.
 """
 
 from __future__ import annotations
@@ -177,6 +178,7 @@ def _match_and_write(cfg: RealConfig, rs, device):
     cfg.fastq = rs.fastq
     print(f"pattern file is {'FASTQ' if rs.fastq else 'FASTA'}",
           file=sys.stderr)
+    launches = gather.launch_counts()
     texts = driver.load_texts(cfg, device)
     if cfg.gaps:
         # the reference ships gapped matching compiled out (real.cpp:23)
@@ -184,7 +186,6 @@ def _match_and_write(cfg: RealConfig, rs, device):
               "in the reference (real.cpp:23); ignoring it.",
               file=sys.stderr)
     t0 = time.perf_counter()
-    launches = gather.launch_counts()
     mesh_plan = None
     if cfg.use_mesh:
         # rs is the whole read set; this rank matches its row's slice

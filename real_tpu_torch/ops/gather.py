@@ -39,7 +39,7 @@ import torch
 
 from real_tpu_torch.index.signatures import (NUM_LISTS,
                                              logical_shift_right)
-from real_tpu_torch.ops import cuda_build
+from real_tpu_torch.ops import cuda_build, pack
 from real_tpu_torch.text.packed import (MASK32, i32_bits,
                                         pair_mismatch_count, u32)
 
@@ -391,11 +391,13 @@ verify_windows.launches = 0
 
 
 def launch_counts() -> dict:
-    """The launch counts of the three entry points since the last reset."""
+    """The launch counts of the three entry points and of the genome pack
+    (ops/pack.py, one launch set a text) since the last reset."""
     return {"probe_candidates": probe_candidates.launches,
             "probe_candidates_wide": probe_candidates.launches_wide,
             "verify_windows": verify_windows.launches,
-            "gather_word_windows": gather_word_windows.launches}
+            "gather_word_windows": gather_word_windows.launches,
+            "pack_text": pack.pack_text.launches}
 
 
 def reset_launch_counts() -> None:
@@ -404,3 +406,4 @@ def reset_launch_counts() -> None:
     probe_candidates.launches = 0
     probe_candidates.launches_wide = 0
     verify_windows.launches = 0
+    pack.pack_text.launches = 0

@@ -21,8 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from real_tpu_torch import bitpack
-from real_tpu_torch.index.signatures import PAIR_SEGMENTS, SigConfig
+from real_tpu_torch.ops import pack
 from real_tpu_torch.utils import spans
 
 MASK32 = 0xFFFFFFFF
@@ -89,70 +88,23 @@ class PackedText:
 
 def build_packed_text(codes: np.ndarray, ranges: List[Tuple[str, int]],
                       device) -> PackedText:
-    """The text's tables packed on the host (span `genome.pack`), then
-    copied to `device` (span `genome.upload`)."""
+    """The text's tables on `device`, packed by ops/pack.py pack_text: on
+    the card from the uploaded codes, on the CPU by its host version
+    (spans `genome.upload` and `genome.pack` either way)."""
     n = int(codes.shape[0])
     if n >= 2**31:
         raise ValueError(
             "text file larger than 2^31 bases: split into per-fragment "
             "shards (positions are int32, like the reference's u32 "
             "Mask::pos, Mask.hpp:47)")
-    with spans.span("genome.pack"):
-        words = bitpack.pack_2bit(codes, pad_words=2)
-        nbits = bitpack.pack_bitmap(codes > 3, pad_words=2)
-        ncum = bitpack.bitmap_cum_popcount(nbits)
-        # 16-bit N-groups: split each 32-bit word into (hi, lo) halves
-        nw = len(nbits)
-        nb16 = np.empty(2 * nw, dtype=np.uint32)
-        nb16[0::2] = nbits >> np.uint32(16)
-        nb16[1::2] = nbits & np.uint32(0xFFFF)
-        ncum16 = np.zeros(2 * nw + 1, dtype=np.int64)
-        ncum16[1:] = np.cumsum(np.bitwise_count(nb16))
-        has_n = bool(ncum16[-1] > 0)
-        ncum16 = ncum16.astype(np.int32)
-        frag_offsets = np.array([off for _, off in ranges], dtype=np.int32)
-        allt32 = _has_all_t_pair(codes, 32)
-        allt64 = _has_all_t_pair(codes, 64)
+    t = pack.pack_text(np.ascontiguousarray(codes, dtype=np.uint8), device)
     with spans.span("genome.upload"):
-        tables = [as_i32_tensor(a, device) for a in
-                  (words, nbits, ncum, frag_offsets, nb16, ncum16)]
+        frag_offsets = as_i32_tensor(
+            np.array([off for _, off in ranges], dtype=np.int32), device)
     return PackedText(
-        words=tables[0], nbits=tables[1], ncum=tables[2],
-        frag_offsets=tables[3], n=n, ranges=list(ranges),
-        nb16=tables[4], ncum16=tables[5], allt32=allt32, allt64=allt64,
-        has_n=has_n)
-
-
-def _run_all(x: np.ndarray, w: int) -> np.ndarray:
-    """r[i] = x[i] & x[i+1] & ... & x[i+w-1] by dyadic folding (w a power
-    of two); len(r) = len(x) - w + 1."""
-    step = 1
-    while step < w:
-        x = x[:-step] & x[step:]
-        step *= 2
-    return x
-
-
-def _has_all_t_pair(codes: np.ndarray, seedl: int) -> bool:
-    """True when some window's pair signature equals the 0xFFFFFFFF
-    sentinel — i.e. a genuine all-T segment pair exists. Only a
-    full-width pair reaches the sentinel: seedl == 32 (narrow) or
-    seedl == 64 (wide)."""
-    w = seedl // 4
-    x = codes == 3
-    if len(x) < seedl:
-        return False
-    seg_t = _run_all(x, w)                 # seg_t[i]: codes[i:i+w] all T
-    if not seg_t.any():
-        return False
-    offs = SigConfig(seedl).seg_offsets
-    nwin = len(codes) - seedl + 1
-    for a, b in PAIR_SEGMENTS:
-        sa = seg_t[offs[a]:offs[a] + nwin]
-        sb = seg_t[offs[b]:offs[b] + nwin]
-        if bool(np.any(sa & sb)):
-            return True
-    return False
+        words=t.words, nbits=t.nbits, ncum=t.ncum, frag_offsets=frag_offsets,
+        n=n, ranges=list(ranges), nb16=t.nb16, ncum16=t.ncum16,
+        allt32=t.allt32, allt64=t.allt64, has_n=t.has_n)
 
 
 # ---------------------------------------------------------------------------
