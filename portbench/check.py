@@ -3,11 +3,14 @@ reference's, read by read, on a sample of reads drawn from the seed.
 
 A job's output is the bytes the program wrote to its standard output. Its
 records are found by read id (the generator's fixed-width 'r%09d'), so a
-reordered read file is compared read for read like its draw. A sampled
-read differs when its record is not the reference's, byte for byte, or
-when one of them has a record and the other none, or when the output holds
-the read twice. Every line that is not a record of a read of the file
-counts as one difference more.
+reordered read file is compared read for read like its draw. A read may
+have any number of records (matchAll prints one a hit, in no fixed order),
+so a sampled read's records are compared as a multiset of lines: the read
+differs when the sorted list of its lines in the output is not the sorted
+list of the reference's, byte for byte. That catches a record missing,
+one more, one printed twice and one with a byte changed, and is blind to
+order. Every line that is not a record of a read of the file counts as
+one difference more, and so does a cut last line.
 """
 
 from __future__ import annotations
@@ -62,20 +65,40 @@ def sampled_lines(chunks: List[bytes], num_reads: int,
     return b"".join(kept), bad + int(len(tail) > 0)
 
 
+def _records(want: Optional[bytes]) -> List[bytes]:
+    """The reference's entry for one read as its sorted lines, each with
+    its newline (a last line without one kept as it is)."""
+    if not want:
+        return []
+    lines = want.split(b"\n")
+    out = [line + b"\n" for line in lines[:-1]]
+    return sorted(out + [lines[-1]] if lines[-1] else out)
+
+
 def differing(blob: bytes, num_reads: int, rows: np.ndarray,
               expected: List[Optional[bytes]]) -> int:
-    """How many of the reads `rows` have another record in `blob` than
-    `expected` (None: no record), plus the lines of `blob` that are no
-    read's record."""
+    """How many of the reads `rows` have other records in `blob` than
+    `expected` (None: no record; else that read's record lines in any
+    order), compared as multisets of lines, plus the lines of `blob` that
+    are no read's record and a cut last line."""
     a = np.frombuffer(blob, np.uint8)
     bad = int(len(a) > 0 and a[-1] != ord("\n"))   # a cut last line
     starts, ends, num, b = _lines(a, num_reads)
     bad += b
-    count = np.bincount(num, minlength=num_reads)
-    line_of = np.full(num_reads, -1, np.int64)
-    line_of[num] = np.arange(len(num))
-    for r, want in zip(rows.tolist(), expected):
-        i = line_of[r]
-        got = None if i < 0 else blob[starts[i]:ends[i]]
-        bad += int(got != want or count[r] > 1)
+    # the sampled reads' lines, grouped by read number in one stable sort
+    sampled = np.zeros(num_reads, bool)
+    sampled[rows] = True
+    sel = np.flatnonzero(sampled[num])
+    sel = sel[np.argsort(num[sel], kind="stable")]
+    grouped = num[sel]
+    first = np.searchsorted(grouped, rows)
+    last = np.searchsorted(grouped, rows, side="right")
+    s, e = starts[sel].tolist(), ends[sel].tolist()
+    for i, j, want in zip(first.tolist(), last.tolist(), expected):
+        # most reads have no record or one, on both sides: equal as bytes
+        if (i == j and want is None) or (
+                j - i == 1 and blob[s[i]:e[i]] == want):
+            continue
+        got = sorted(blob[s[k]:e[k]] for k in range(i, j))
+        bad += got != _records(want)
     return bad

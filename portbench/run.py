@@ -14,8 +14,9 @@ through). One run is one process:
    the checkout, and warms the card's allocator at the jobs' sizes);
 2. the window: jobs one after another, each one call of the program's
    entry real_tpu_torch.cli.main.main as a user runs it
-   (-t genome -p reads -u -q -e -R 0 -o -, every other flag at its
-   default, plus -metrics into $TMPDIR), its records written into memory
+   (-t genome -p reads -u -q -e -R 0 -o -, plus -metrics into $TMPDIR,
+   then the configuration's own `flags`, every other option at its
+   default), its records written into memory
    in place of the standard output. Once a job has ended, and before the
    next starts, its output is cut down to the lines the check reads and
    the rest freed, as a pipe to the next tool would take it. The window
@@ -58,6 +59,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "real_tpu", "benchmarks")
 # reads of each draw whose records the check compares in every job
 SAMPLE_READS = 65536
 CACHE = os.path.join(ROOT, ".portbench_cache")
+# the program's options that job_argv sets and a configuration may not
+HARNESS_FLAGS = ("-t", "-p", "-u", "-q", "-e", "-R", "-o", "-metrics",
+                 "-device")
 
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
@@ -165,10 +169,20 @@ def cell_files(bench: dict, workload: str):
 
 def job_argv(cfg: dict, genome: str, reads: str, metrics: str,
              device: Optional[str]) -> List[str]:
+    """A job's command line: the harness's options, then the
+    configuration's own `flags` (a list of strings), which may not set
+    one of the harness's: the mode, the limit and the output stay its."""
+    flags = cfg.get("flags", [])
+    if not (isinstance(flags, list)
+            and all(isinstance(f, str) for f in flags)):
+        raise ValueError(f"flags must be strings: {flags!r}")
+    repeated = sorted(set(flags) & set(HARNESS_FLAGS))
+    if repeated:
+        raise ValueError(f"flags {repeated} are the harness's own")
     argv = ["-t", genome, "-p", reads, "-u", str(int(cfg["mode"] == "unique")),
             "-q", str(int(cfg["scores"])), "-e", str(cfg["max_mismatches"]),
             "-R", "0", "-o", "-", "-metrics", metrics]
-    return argv + (["-device", device] if device else [])
+    return argv + (["-device", device] if device else []) + flags
 
 
 def run_job(argv: List[str], reads: int, draw: int, cuda: bool) -> Job:

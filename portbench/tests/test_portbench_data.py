@@ -220,7 +220,9 @@ def test_metric_readers_on_a_made_up_run(tmp_path):
             "rerun.s": 0.05, "rerun.read_share": 0.5, "output.s": 0.2,
             "device_peak_gb": 6.0,
             "device.idle": 100 * (1 - 240e-6 / 1.75), "k1.ms": 0.05}
-    got = {m["name"]: run.read_metric(m["name"], r) for m in METRICS}
+    # the span metrics read None on these span-less jobs; their readings
+    # are test_portbench_spans.py's
+    got = {name: run.read_metric(name, r) for name in want}
     assert got == pytest.approx(want)
     quiet = run.Run(20.0, [jobs[1]], None)
     for name in ("rerun.s", "rerun.read_share", "device.idle", "k1.ms"):
@@ -253,3 +255,34 @@ def test_cell_metrics_follow_workloads():
                                                    False)}
         assert {"reads_per_s", "setup_s"} <= e2e
         assert run.cell_metrics(BENCHMARK, w["name"], True)
+
+
+def _argv_today(cfg, device):
+    """job_argv for a configuration without `flags`, written out."""
+    argv = ["-t", "g.fa", "-p", "r.fq", "-u",
+            "1" if cfg["mode"] == "unique" else "0",
+            "-q", "1" if cfg["scores"] else "0",
+            "-e", str(cfg["max_mismatches"]), "-R", "0", "-o", "-",
+            "-metrics", "m.json"]
+    return argv + (["-device", device] if device else [])
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_job_argv_appends_a_configurations_own_flags(device):
+    configs = [run.load_json(os.path.join(ROOT, c["file"]))
+               for c in BENCHMARK["configs"]]
+    for cfg in configs + [{"mode": "all", "scores": False,
+                           "max_mismatches": 3}]:
+        assert run.job_argv(cfg, "g.fa", "r.fq", "m.json", device) == \
+            _argv_today(cfg, device)
+        flagged = dict(cfg, flags=["-shards", "3", "-l", "64"])
+        assert run.job_argv(flagged, "g.fa", "r.fq", "m.json", device) == \
+            _argv_today(cfg, device) + ["-shards", "3", "-l", "64"]
+
+
+@pytest.mark.parametrize("flag", run.HARNESS_FLAGS)
+def test_job_argv_refuses_a_flag_the_harness_sets(flag):
+    cfg = {"mode": "unique", "scores": True, "max_mismatches": 4,
+           "flags": ["-shards", "3", flag, "1"]}
+    with pytest.raises(ValueError, match="harness"):
+        run.job_argv(cfg, "g.fa", "r.fq", "m.json", "cpu")
