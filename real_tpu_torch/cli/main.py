@@ -46,7 +46,14 @@ threads. A phase_s entry is the sum of its phase's spans (`rerun.` for
 those under a nested `driver`); wall_s runs from after `genome.load` to
 after `output`. `stream_wait_s` is the seconds the match loop spent
 waiting for the streaming reads' producer (io/pipeline.py; 0 when the
-reads stay resident; `streamed_batches` counts the batches). -trace
+reads stay resident; `streamed_batches` counts the batches). `counters`
+holds every counter of the job (utils/spans.py `add`) as it was summed:
+`stream_wait_s` unrounded, and on the matchAll path `allhits.decoded`
+(hit rows decoded from the steps' compacted hits, every rerun depth)
+and `allhits.records` (records written). A matchAll job's `driver` spans
+hold `allhits.wait` (the host waiting for a step's hit copy),
+`allhits.decode` (decoding a step's hits) and `allhits.sort` (each sort
+and dedup of the hit columns). -trace
 records the whole job, from the read parse to the last record, with
 torch.profiler (CPU and CUDA activities on the card, the CPU alone under
 -device cpu) and writes one Chrome trace into the directory; each span of
@@ -160,7 +167,7 @@ def _job(cfg: RealConfig, device, reads) -> int:
         metrics, num_reads, wall = _match_and_write(cfg, reads(), device)
     if cfg.metrics_json:
         _write_metrics(cfg, dict(
-            metrics, spans=rec.export(),
+            metrics, spans=rec.export(), counters=dict(rec.counters),
             stream_wait_s=round(rec.counters.get("stream_wait_s", 0.0), 6)),
             num_reads, wall)
     return 0

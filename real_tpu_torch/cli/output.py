@@ -298,8 +298,9 @@ def write_all_arrays(out: IO, rs: ReadSet, cols, texts: List[TextFile],
     The reference's order is thread-interleaved and nondeterministic
     (matchAllImplementation.cpp:467-533); this prints read-major, the hits
     of a read in unified (sorted) order, as real_tpu does. Returns the
-    record count."""
+    record count, which adds to the job's counter `allhits.records`."""
     pid, k, pos, fid, frag, score, inv = cols
+    spans.add("allhits.records", len(pid))
 
     def make_blob(s, e):
         return _format_records(

@@ -1264,10 +1264,12 @@ def _composite_keys(cols: tuple) -> Optional[tuple]:
     return p1, p2, p3
 
 
+@spans.traced("allhits.sort")
 def _sort_dedup_hits(cols: tuple, use_native: bool = True) -> tuple:
     """Sort hit columns (pid, k, pos, fileid, frag, score, inv) by all
     seven keys in that order and drop identical neighbours
-    (real_tpu/engine/driver.py _sort_dedup_hits).
+    (real_tpu/engine/driver.py _sort_dedup_hits). Each call is a span
+    `allhits.sort` of the job.
 
     The 7-key comparator collapses to three composite-uint64 keys sorted
     stably in LSD order (_composite_keys). The native radix sort takes
@@ -1316,10 +1318,11 @@ class _HitFetch:
 
     def numpy(self, watchdog_s: float = 0) -> CompactHits:
         """The step's CompactHits as numpy arrays (waits for the copy,
-        under the watchdog)."""
-        if self.event is not None:
-            with watchdog(watchdog_s, "matchAll hit drain"):
-                self.event.synchronize()
+        under the watchdog, in a span `allhits.wait`)."""
+        with spans.span("allhits.wait"):
+            if self.event is not None:
+                with watchdog(watchdog_s, "matchAll hit drain"):
+                    self.event.synchronize()
         a, h = self.host.numpy(), self.h
         return CompactHits(pos=a[:h], m1=a[h:2 * h], m2=a[2 * h:3 * h],
                            score=a[3 * h:4 * h].view(np.float32),
@@ -1338,9 +1341,12 @@ class _HitAccumulator:
         # whole batch is rerun (compact_hits)
         self.batch_overflow_steps = 0
 
+    @spans.traced("allhits.decode")
     def add_compact(self, ch: CompactHits, patids: np.ndarray, fi: int,
                     n: int, overflow_out: np.ndarray) -> None:
-        """Decode one step's CompactHits (numpy) for its n real reads."""
+        """Decode one step's CompactHits (numpy) for its n real reads (a
+        span `allhits.decode`; the rows decoded add to the job's counter
+        `allhits.decoded`)."""
         overflow_out[patids[ch.overflow[:n]]] = True
         h = len(ch.pos)
         self.batch_overflow_steps += int(ch.count > h)
@@ -1348,6 +1354,7 @@ class _HitAccumulator:
         rows = ch.m1[:c] >> 4
         keep = rows < n            # padded rows never produce hits
         rows = rows[keep]
+        spans.add("allhits.decoded", rows.size)
         if rows.size == 0:
             return
         self.cols.append((

@@ -15,11 +15,11 @@ from tests import ab_util
 
 # keys the port's metrics add to real_tpu's: the unit loop's account of
 # itself (engine/driver.py _loop_metrics), the hand kernels' launches, and
-# the job's spans and streaming wait (cli/main.py)
+# the job's spans, counters and streaming wait (cli/main.py)
 PORT_EXTRA_KEYS = {"units", "units_skipped", "units_dispatched",
                    "reserved_bytes", "plans", "source_resident",
                    "resident_read_bytes", "streamed_batches",
-                   "kernel_launches", "spans", "stream_wait_s"}
+                   "kernel_launches", "spans", "counters", "stream_wait_s"}
 # phase keys only the port has: real_tpu fills its metrics before the
 # overflow rerun, the port adds the rerun's phases as rerun.<phase>
 RERUN_PREFIX = "rerun."

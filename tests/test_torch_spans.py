@@ -28,7 +28,9 @@ JOB_SPANS = {"job", "parse.reads", "genome.load", "genome.parse",
              "genome.pack", "genome.upload", "driver", "plan", "setup",
              "index_build", "match", "drain", "output", "output.format",
              "output.write"}
-CASES = {"unique": ([], {"collect"}), "all": (["-u", "0"], {"finalize"})}
+CASES = {"unique": ([], {"collect"}),
+         "all": (["-u", "0"], {"finalize", "allhits.wait", "allhits.decode",
+                               "allhits.sort"})}
 
 
 def _inputs(tmp_path, numpat=300, seed=41):
