@@ -8,11 +8,12 @@
     python3 chip_smoke.py --grch        # phase (m) alone
     python3 chip_smoke.py --fly         # phase (n) alone
     python3 chip_smoke.py --pack        # the genome pack (4b) alone, timed
+    python3 chip_smoke.py --scorefold   # the score and fold (4c) alone, timed
 
 Drives the port's four paths through their entry points on CUDA, holds
 every kernel of those paths (gather_windows, probe_candidates in its 32-bit
-and its 64-bit entry, verify_windows, gather_rowsum, pack_text) against its
-plain version, and holds every entry of the native host library
+and its 64-bit entry, verify_windows, gather_rowsum, pack_text, score_fold)
+against its plain version, and holds every entry of the native host library
 (native/readpack.cpp) against its plain NumPy version:
 
   matchUnique  bench.py's size: a 4.6 Mbp random genome (E. coli scale),
@@ -75,7 +76,7 @@ times; with --pack phases 1-2 and 4b on every path's genome (the
 matchUnique, yeast, chr21 and fly genomes from their generators and seeds,
 and a random text of 2^31 - 64 bases with N runs, the largest sub-text
 split_oversized makes, packed in 4 chunks), then 4b's times at chr21's and
-fly's sizes.
+fly's sizes; with --scorefold phases 1-2 and 4c, then 4c's times.
 
 Phases:
 
@@ -124,6 +125,21 @@ Phases:
                 (upload, launches, flags) and the codes' upload alone on
                 the host clock, the plain version on the host, and the
                 bytes bound (codes read once, tables written once)
+  4c. scorefold score_fold (csrc/score_fold.cu, K4) against the plain loops
+                (engine/matchstep.py score_survivors, fold_unique) on the
+                card, every score and state field bit for bit, one launch a
+                call: the crafted fold rows of tools/scorefoldcases.py,
+                random lanes at S 8 / 128 / 2,048 x patl 32-150, each half
+                alone and both, FASTQ, FASTA and N codes, n_shard x S lanes
+                folded alone, and the timed shapes. Every one-device timed
+                run launches it once a step (as often as verify_windows), a
+                mesh cell once a step, a rank of a matchUnique rank mesh
+                twice (its shard scored, the row folded). Timed (after the
+                kernel times, and under --scorefold) at SCOREFOLD_SHAPES:
+                chr21's and fly's main steps (B 32,768 x S 8, patl 75
+                FASTQ / 100 FASTA) and fly's reruns (B 512 x S 128 and
+                2,048): device and host-inclusive us, the plain loops on
+                the card on the host clock, and the bytes bound
   5. unique     load -> run_match_unique -> write_unique through the
                 native host entries (reads parsed anew, as with -R 0),
                 warmup then timed; reads/s, phase seconds, overflow reruns,
@@ -370,6 +386,15 @@ PACK_SRC = "real_tpu_torch/csrc/pack_text.cu"
 PACK_REPLACES = "none (real_tpu packs the genome on the host)"
 # per text that phase 4b checked: its launches and largest error
 PACK_CHECKS = {}
+SCOREFOLD_SRC = "real_tpu_torch/csrc/score_fold.cu"
+SCOREFOLD_REPLACES = ("none (real_tpu's compiled lax.fori_loop score and "
+                      "lax.scan fold, real_tpu/engine/matchstep.py:714, :753)")
+# the score and fold's timed shapes (phase 4c, kernel times): (tag, B, S,
+# patl, FASTA): chr21's and fly's main steps, fly's reruns at 16x and 256x
+SCOREFOLD_SHAPES = (("chr21_main", 32768, 8, 75, False),
+                    ("fly_main", 32768, 8, 100, True),
+                    ("fly_rerun_s128", 512, 128, 100, True),
+                    ("fly_rerun_s2048", 512, 2048, 100, True))
 
 
 def log(msg: str) -> None:
@@ -391,7 +416,7 @@ def card_phase(torch):
 def build_phase():
     from real_tpu_torch import native
     from real_tpu_torch.ops import cuda_build
-    names = ("gather_windows", "gather_rowsum", "pack_text")
+    names = ("gather_windows", "gather_rowsum", "pack_text", "score_fold")
 
     def build_native():
         t = time.perf_counter()
@@ -913,6 +938,133 @@ def pack_only(torch, dev) -> list:
     return kernels
 
 
+def _scorefold_inputs(case, dev):
+    """score_fold's arguments of a tools/scorefoldcases.py case on `dev`,
+    the codes as a batch holds them: a [B, patl] slice of rows of
+    kw * 16 bases."""
+    import torch
+    from real_tpu_torch.tools import scorefoldcases
+    surv, state, kw = scorefoldcases.torch_inputs(case, dev)
+    if "codes" in kw:
+        B, patl = kw["codes"].shape
+        wide = torch.zeros((B, -(-patl // 16) * 16), dtype=torch.uint8,
+                           device=dev)
+        wide[:, :patl] = kw["codes"]
+        kw["codes"] = wide[:, :patl]
+    return surv, state, kw
+
+
+def _scorefold_plain(surv, state, kw):
+    """The plain loops on the arguments' own device (the card's here)."""
+    from real_tpu_torch.engine import matchstep
+    if "tw" in kw:
+        surv = matchstep.score_survivors(surv, kw["tw"], kw["codes"],
+                                         kw["quals"], kw["tables"])
+    if state is not None:
+        state = matchstep.fold_unique(state, surv, kw["fileid"],
+                                      kw["epsilon"], scores=kw["scores"])
+    return surv, state
+
+
+def scorefold_check(torch, case, dev) -> None:
+    """One score_fold call on the card against the plain loops on the
+    card: every score's and every state field's bits; one launch."""
+    from real_tpu_torch.ops import gather, scorefold
+    surv, state, kw = _scorefold_inputs(case, dev)
+    before = gather.launch_counts()["score_fold"]
+    got_surv, got_state = scorefold.score_fold(surv, state, **kw)
+    torch.cuda.synchronize()
+    launches = gather.launch_counts()["score_fold"] - before
+    want_surv, want_state = _scorefold_plain(surv, state, kw)
+    bad = [] if torch.equal(got_surv.score.view(torch.int32),
+                            want_surv.score.view(torch.int32)) else ["score"]
+    if state is not None:
+        bad += [f for f, a, b in zip(want_state._fields, want_state,
+                                     got_state)
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    if bad or launches != 1:
+        raise AssertionError(f"(4c) {case.name}: score_fold differs from "
+                             f"the plain loops in {bad}, {launches} launches")
+
+
+def scorefold_phase(torch, dev) -> int:
+    """Phase 4c: K4 bit for bit against the plain loops on the crafted
+    fold rows of tools/scorefoldcases.py, on random lanes at every
+    survivor cap (8, 128, 2,048) and read length (32, 50, 75, 100, 150)
+    with each half alone and both, FASTQ, FASTA and N codes, on the mesh's
+    shard-major lanes, and at the timed shapes."""
+    from real_tpu_torch.tools import scorefoldcases as sfc
+    cases = list(sfc.crafted_cases())
+    for B, S in ((4096, 8), (512, 128), (64, 2048)):
+        for patl in (32, 50, 75, 100, 150):
+            for halves in ("scorefold", "score", "fold_k"):
+                cases.append(sfc.random_case(
+                    B + S + patl, B, S, patl, score=halves != "fold_k",
+                    fold=halves != "score", scores=halves != "fold_k",
+                    fasta=patl in (50, 100), with_n=patl in (32, 75)))
+    for n_shard, S in ((2, 8), (3, 8), (4, 128)):
+        for scores in (True, False):
+            cases.append(sfc.random_case(n_shard * S + scores, 1024,
+                                         n_shard * S, 75, score=False,
+                                         fold=True, scores=scores))
+    for tag, B, S, patl, fasta in SCOREFOLD_SHAPES:
+        cases.append(sfc.random_case(B * S + patl, B, S, patl, score=True,
+                                     fold=True, fasta=fasta))
+    t = time.perf_counter()
+    for case in cases:
+        scorefold_check(torch, case, dev)
+    log(f"[scorefold] {len(cases)} cases bit-identical to the plain loops, "
+        f"one launch each ({time.perf_counter() - t:.1f}s)")
+    return len(cases)
+
+
+def scorefold_times(torch, dev, launches) -> list:
+    """K4's entries of the kernels line at SCOREFOLD_SHAPES (score and
+    fold, as a one-device matchUnique step): the launch (time_ms: device
+    and host-inclusive), the plain loops on the card on the host clock
+    (synchronized, median of 3: they are hundreds to ~90,000 small
+    kernels, past what time_ms can queue), and the bytes bound (each
+    input byte read once, each output byte written once).
+    `launches` is {path: that path's timed run's score_fold launches}."""
+    from real_tpu_torch.ops import scorefold
+    from real_tpu_torch.tools import scorefoldcases as sfc
+    from real_tpu_torch.tools.cudatime import time_ms
+    out = []
+    for tag, B, S, patl, fasta in SCOREFOLD_SHAPES:
+        case = sfc.random_case(B * S + patl, B, S, patl, score=True,
+                               fold=True, fasta=fasta)
+        surv, state, kw = _scorefold_inputs(case, dev)
+        kw_ = (patl + 15) // 16
+        nbytes = (B * S * (4 * kw_ + 2 + 12 + 4)      # tw, flags, fields, out
+                  + B * patl * (1 + (not fasta))      # codes, quals
+                  + 2 * 24 * B + 8 * 1024)            # state in/out, LL
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms, ms_host = time_ms(lambda: scorefold.score_fold(surv, state,
+                                                           **kw))
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _scorefold_plain(surv, state, kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        plain_ms = float(np.median(secs)) * 1e3
+        log(f"[times] score_fold/{tag}: B={B} S={S} patl={patl} "
+            f"{'FASTA' if fasta else 'FASTQ'}, device us (host-inclusive "
+            f"us): kernel {ms * 1e3:.2f} ({ms_host * 1e3:.2f}), bound "
+            f"{bound_ms * 1e3:.3f} ({nbytes} B); the plain loops on the "
+            f"card, host clock: {plain_ms * 1e3:.1f} us; launches "
+            f"{launches}")
+        out.append({"name": f"score_fold/{tag}", "route": "cuda",
+                    "source": SCOREFOLD_SRC, "replaces": SCOREFOLD_REPLACES,
+                    "launches": launches, "max_abs_err": 0, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": None,
+                    "host_ms": ms_host})
+        del surv, state, kw
+    return out
+
+
 def run_once(cfg, reads_path, device, caps=None):
     """One timed pass of a path through its entry points: (read set,
     texts, result, record bytes, record count, phase seconds). The reads
@@ -1028,7 +1180,8 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
     torch.cuda.synchronize()
     launches = {"probe_candidates": gather.probe_candidates.launches,
                 "verify_windows": gather.verify_windows.launches,
-                "pack_text": gather.launch_counts()["pack_text"]}
+                "pack_text": gather.launch_counts()["pack_text"],
+                "score_fold": gather.launch_counts()["score_fold"]}
     reruns = dict(gather.gather_word_windows.launches_by_w)
     log(f"{tag} {pc.num_reads} reads in {ph['total']:.3f}s = "
         f"{pc.num_reads / ph['total']:.1f} reads/s end to end "
@@ -1048,6 +1201,7 @@ def path_phase(torch, pc: PathCfg, g, r, r_warm, truth, dev):
         if count <= 0:
             raise AssertionError(f"{pc.name} path made no {name} launch")
     _require_packs(f"{pc.name} path", launches["pack_text"], len(texts))
+    _require_score_folds(f"{pc.name} path", launches)
     share = truth_share(pc, result, truth)
     log(f"{tag} truth share (reads with <= {pc.truth_kmax} mutations "
         f"reported at their true position): {share:.5f}")
@@ -1283,6 +1437,17 @@ def _require_packs(tag, count, texts) -> None:
                              f"{texts} text(s)")
 
 
+def _require_score_folds(tag, k, per_step=1) -> None:
+    """K4 launched `per_step` times a step, a step being one launch of
+    verify_windows: one a one-device step or a mesh cell's step (scored),
+    two a rank's matchUnique mesh step (its shard scored, then the row
+    folded)."""
+    if k["score_fold"] != per_step * k["verify_windows"]:
+        raise AssertionError(
+            f"{tag}: {k['score_fold']} score_fold launches for "
+            f"{k['verify_windows']} steps, not {per_step} a step")
+
+
 def _require_same_records(tag, blob, blob_a):
     if blob != blob_a:
         raise AssertionError(f"chr21 ({tag}): records differ from the "
@@ -1318,6 +1483,7 @@ def matchall_resume_phase(pc: PathCfg, cfg, r, blob_a, tmp, dev):
     if blob != blob_a:
         raise AssertionError(f"{pc.name} (d3): records differ from phase "
                              "7's")
+    _require_score_folds(f"{pc.name} (d3)", m["kernel_launches"])
 
 
 def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
@@ -1341,6 +1507,7 @@ def chr21_runs_phase(torch, pc: PathCfg, cfg, r, blob_a, tmp, dev):
         f"{gather.verify_windows.launches}, pack_text "
         f"{m['kernel_launches']['pack_text']}")
     _require_packs("chr21 (b)", m["kernel_launches"]["pack_text"], 1)
+    _require_score_folds("chr21 (b)", m["kernel_launches"])
     if m["units_dispatched"] != 3 or m["source_resident"] \
             or m["streamed_batches"] < 3 * steps_per_unit:
         raise AssertionError("chr21 (b): not 3 units over a streaming source")
@@ -1453,9 +1620,12 @@ def chr21_wide_phase(torch, pc: PathCfg, g, r_wide, r_small, truth, dev):
         launches[wpc.name] = {
             "probe_candidates": gather.probe_candidates.launches_wide,
             "verify_windows": gather.verify_windows.launches,
-            "pack_text": res.metrics["kernel_launches"]["pack_text"]}
+            "pack_text": res.metrics["kernel_launches"]["pack_text"],
+            "score_fold": res.metrics["kernel_launches"]["score_fold"]}
         _require_packs(f"chr21 (e) -l {seedl}",
                        launches[wpc.name]["pack_text"], len(texts))
+        _require_score_folds(f"chr21 (e) -l {seedl}",
+                             res.metrics["kernel_launches"])
         share = truth_share(wpc, res, truth[:WIDE_READS])
         _one_device(wpc.name, cfg, rs, res, ph)
         log(f"[chr21] (e) -l {seedl}: {WIDE_READS} reads in "
@@ -1798,6 +1968,8 @@ def mesh_run(torch, tag, pc: PathCfg, g, r, shards, world, want, tmp):
                 or (pc.seedl > 32) != (k["probe_candidates_wide"] > 0):
             raise AssertionError(f"(j) {tag}: rank {rank} did not launch "
                                  "the fused kernels")
+        _require_score_folds(f"(j) {tag}: rank {rank}", k,
+                             per_step=1 + pc.unique)
         m["start_to_exit_s"] = secs[rank]
         metrics.append(m)
     records = merged.count(b"\n")
@@ -1847,6 +2019,7 @@ def local_mesh_run(torch, tag, pc: PathCfg, g, r, shards, cells, want):
                 or (pc.seedl > 32) != (k["probe_candidates_wide"] > 0):
             raise AssertionError(f"(k) {tag}: cell {c} did not launch the "
                                  f"fused kernels ({k})")
+        _require_score_folds(f"(k) {tag}: cell {c}", k)
     for card, peak in enumerate(m["peak_bytes_by_card"]):
         budget = cfg.fracmem * torch.cuda.mem_get_info(card)[1]
         if peak > budget:
@@ -1912,6 +2085,7 @@ def cli_default_mesh(torch, pc: PathCfg, g, r, want, tmp):
         if k["probe_candidates"] <= 0 or k["verify_windows"] <= 0:
             raise AssertionError(f"(k) CLI default: cell {c} did not launch "
                                  f"the fused kernels ({k})")
+        _require_score_folds(f"(k) CLI default: cell {c}", k)
     log(f"[localmesh] CLI with no device flag on {cards} cards: grids "
         f"{mesh['grids']}, records byte-identical to one device's; "
         f"{wall:.2f}s start to exit, wall_s {m['wall_s']}, mesh_gathers "
@@ -2071,6 +2245,7 @@ def rank_local_run(torch, tag, pc: PathCfg, g, r, shards, world, cells,
                     or (pc.seedl > 32) != (k["probe_candidates_wide"] > 0):
                 raise AssertionError(f"(l) {tag}: rank {rank} cell {c} did "
                                      f"not launch the fused kernels ({k})")
+            _require_score_folds(f"(l) {tag}: rank {rank} cell {c}", k)
         for card, peak in enumerate(peaks):
             budget = fracmem * torch.cuda.mem_get_info(card)[1]
             if peak > budget:
@@ -2290,6 +2465,7 @@ def grch_cli_run(torch, g, r, tmp):
         raise AssertionError(f"grch: {len(m['plans'])} texts, not the two "
                              "sub-texts of the split")
     _require_packs("grch (m-a)", k["pack_text"], 2)
+    _require_score_folds("grch (m-a)", k)
     if k["gather_word_windows"] <= 0 or k["verify_windows"] <= 0:
         raise AssertionError("grch (m-a): a K1 entry of the bisection route "
                              "made no launch")
@@ -2531,6 +2707,7 @@ def grch_phase(torch, dev):
                 or launches_b["verify_windows"] <= 0:
             raise AssertionError("grch (m-b): a K1 entry of the probe route "
                                  "made no launch")
+        _require_score_folds("grch (m-b)", launches_b)
         if any(s for p in m["plans"] for s in p["bsearch_steps"]):
             raise AssertionError("grch (m-b): a unit bisects")
         records = want.count(b"\n")
@@ -2584,13 +2761,15 @@ def grch_phase(torch, dev):
     launches = {"grch": {"gather_windows": k_a["gather_word_windows"],
                          "verify_windows": k_a["verify_windows"],
                          "probe_candidates": k_a["probe_candidates"],
-                         "pack_text": k_a["pack_text"]},
+                         "pack_text": k_a["pack_text"],
+                         "score_fold": k_a["score_fold"]},
                 "grch_m_b": {"gather_windows":
                              launches_b["gather_word_windows"],
                              "verify_windows": launches_b["verify_windows"],
                              "probe_candidates":
                              launches_b["probe_candidates"],
-                             "pack_text": launches_b["pack_text"]}}
+                             "pack_text": launches_b["pack_text"],
+                             "score_fold": launches_b["score_fold"]}}
     log(f"[grch] phase (m) {time.perf_counter() - t_phase:.1f}s")
     return sites, errs, fused, ferrs, fouts, launches
 
@@ -2726,6 +2905,7 @@ def fly_cli_run(torch, g, r, tmp, nbatches):
         raise AssertionError("fly (n-a): a K1 entry of the bisection route "
                              "made no launch")
     _require_packs("fly (n-a)", k["pack_text"], 1)
+    _require_score_folds("fly (n-a)", k)
     if peak > budget:
         raise AssertionError(f"fly (n-a): peak {peak} B over the budget of "
                              f"{budget:.0f} B")
@@ -2880,6 +3060,7 @@ def _fly_runs(torch, dev, g, r, tmp, nbatches, ex):
         raise AssertionError("fly (n-b): the probe route's K1 entries "
                              "(probe_candidates 32-bit, verify_windows) "
                              "made no launch")
+    _require_score_folds("fly (n-b)", launches_b)
     if peak_b > budget:
         raise AssertionError(f"fly (n-b): peak {peak_b} B over the budget "
                              f"of {budget:.0f} B")
@@ -2931,7 +3112,8 @@ def _fly_runs(torch, dev, g, r, tmp, nbatches, ex):
     launches = {tag: {"gather_windows": k["gather_word_windows"],
                       "verify_windows": k["verify_windows"],
                       "probe_candidates": k["probe_candidates"],
-                      "pack_text": k["pack_text"]}
+                      "pack_text": k["pack_text"],
+                      "score_fold": k["score_fold"]}
                 for tag, k in (("fly", m_a["kernel_launches"]),
                                ("fly_n_b", launches_b))}
     return sites, errs, fused, ferrs, fouts, launches
@@ -3149,6 +3331,7 @@ def _drive(torch, dev, fly) -> list:
         gc21, codes_c = make_genome(tmp, chr21)
         pack_phase(torch, [(unique.name, codes_u), (yeast.name, codes_a),
                            (chr21.name, codes_c)], dev)
+        scorefold_phase(torch, dev)
         ru, ru_small, ru_warm, truth_u = make_reads(tmp, unique, codes_u)
 
         sites, fused, big_table = [], [], None
@@ -3252,9 +3435,13 @@ def _drive(torch, dev, fly) -> list:
         {unique.name: launches_u, yeast.name: launches_a,
          chr21.name: launches_c, **launches_w, **launches_g, **launches_f},
         rcases, rerrs, rlaunches)
+    paths = {unique.name: launches_u, yeast.name: launches_a,
+             chr21.name: launches_c, **launches_w, **launches_g,
+             **launches_f}
     return kernels + fly_pack_times(
         torch, dev, fly, launches_f, [(chr21.name, codes_c)],
-        {chr21.name: launches_c["pack_text"]})
+        {chr21.name: launches_c["pack_text"]}) + scorefold_times(
+        torch, dev, {k: v["score_fold"] for k, v in paths.items()})
 
 
 def fly_pack_times(torch, dev, fly, launches_f, texts, launches) -> list:
@@ -3384,10 +3571,13 @@ def main() -> int:
         kernels = fly_only(torch, dev)
     elif "--pack" in sys.argv:
         kernels = pack_only(torch, dev)
+    elif "--scorefold" in sys.argv:
+        scorefold_phase(torch, dev)
+        kernels = scorefold_times(torch, dev, {"4c": 1})
     else:
         kernels = drive(torch, dev)
     log("kernels: gather_windows, probe_candidates (32-bit and 64-bit "
-        "entries), verify_windows, gather_rowsum, pack_text")
+        "entries), verify_windows, gather_rowsum, pack_text, score_fold")
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

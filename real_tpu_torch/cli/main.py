@@ -67,7 +67,8 @@ single process it changes nothing. The runner's -mesh
 text's grid, the cells' devices, each cell's kernel launches) and the same
 phase. Every metrics file holds `kernel_launches`, the hand
 kernels' launches in the run, the genome pack's (`pack_text`, one a text)
-among them (ops/gather.py launch_counts), which stay 0 on the CPU.
+and the score and fold's (`score_fold`, one a step) among them
+(ops/gather.py launch_counts), which stay 0 on the CPU.
 """
 
 from __future__ import annotations

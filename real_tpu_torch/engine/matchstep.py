@@ -16,7 +16,9 @@ The three table fetches are CUDA kernels on the card (ops/gather.py):
 probe_candidates takes each probe from its bucket bounds to its tier-1
 lane validity, verify_windows takes each survivor lane from its text words
 to its mismatch counts, and the generic window gather serves the bucket
-bounds of the bisection path.
+bounds of the bisection path. The scoring and the fold are one more
+(ops/scorefold.py score_fold), one launch a step; score_survivors and
+fold_unique below are their plain loops, which CPU tensors take.
 
 32-bit values are int64 tensors holding the unsigned value; 32-bit tables
 are int32 bit patterns (text/packed.py). Wide signatures (seedl 36..64) are
@@ -28,7 +30,7 @@ the re-check after bisection.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ from real_tpu_torch.index.signatures import (NUM_LISTS, SigConfig,
                                              unsigned_order)
 from real_tpu_torch.ops.gather import (gather_word_windows,
                                        probe_candidates, verify_windows)
+from real_tpu_torch.ops.scorefold import score_fold
 from real_tpu_torch.scoring.scoring import ScoreTables
 from real_tpu_torch.text.packed import is_dontcare_free, u32
 
@@ -188,8 +191,9 @@ def find_survivors(
         bsearch_steps: int = 0, text_has_n: bool = True):
     """All verified hits of the batch against this index shard, compacted
     to <= survivor_cap per read in reference merge order. Returns
-    (Survivors, window words). real_tpu/engine/matchstep.py find_survivors
-    documents the design; this is the same computation."""
+    (Survivors, window words int32 [kw, B, S], verify_windows' bit
+    patterns). real_tpu/engine/matchstep.py find_survivors documents the
+    design; this is the same computation."""
     B, patl = codes.shape
     K, S = cand_cap, survivor_cap
     restlen = patl - seedl
@@ -335,7 +339,6 @@ def find_survivors(
     tw, totalk, seedk = verify_windows(words, posc, s_inv, words_s, words_r,
                                        patl, seedl)
     s_valid &= (seedk <= seedkmax) & (totalk <= totalkmax)
-    tw = list(u32(tw).unbind(0))                 # kw x [B, S]
 
     surv = Survivors(valid=s_valid, inv=s_inv, pos=s_pos.to(torch.int32),
                      frag=s_frag.to(torch.int32), k=totalk,
@@ -349,22 +352,25 @@ def find_survivors(
 # scoring of survivors
 # ---------------------------------------------------------------------------
 
-def score_survivors(surv: Survivors, tw: List[torch.Tensor],
-                    codes: torch.Tensor, quals: torch.Tensor,
+def score_survivors(surv: Survivors, tw: torch.Tensor,
+                    codes: torch.Tensor, quals: Optional[torch.Tensor],
                     tables: ScoreTables) -> Survivors:
     """score = f32(1.0 + sum_i LL[ref_i, read_i, q_i]) accumulated in f64
     one position at a time, in base order (ComputeScore.hpp:47-191) —
     real_tpu's 'f64' mode; a tree sum could round differently at an f32
     boundary. Read codes outside 0..3 (N reads, never valid) score as
-    their low bits."""
+    their low bits; quals=None is FASTA's constant 30. The plain version
+    of ops/scorefold.py score_fold's score half (CPU tensors)."""
     B, S = surv.pos.shape
     patl = codes.shape[1]
-    kw = len(tw)
+    kw = tw.shape[0]
     dev = codes.device
+    if quals is None:
+        quals = torch.full(codes.shape, 30, dtype=torch.int8, device=dev)
 
     # unpack candidate window text codes from the already-gathered words
     shifts = 2 * (15 - torch.arange(16, device=dev))
-    tws = torch.stack(tw, dim=-1)                            # [B, S, kw]
+    tws = u32(tw).permute(1, 2, 0)                           # [B, S, kw]
     ref = ((tws[..., None] >> shifts) & 3).reshape(B, S, kw * 16)[..., :patl]
 
     c = codes.to(torch.int64) & 3
@@ -388,7 +394,9 @@ def score_survivors(surv: Survivors, tw: List[torch.Tensor],
 def fold_unique(state: MatchState, surv: Survivors, fileid: int,
                 epsilon: float, *, scores: bool) -> MatchState:
     """Sequential UpdateUniqueInfo automaton over survivors in merge order
-    (matchUniqueImplementation.cpp:97-160 no-scores / :179-248 scores)."""
+    (matchUniqueImplementation.cpp:97-160 no-scores / :179-248 scores).
+    The plain version of ops/scorefold.py score_fold's fold half (CPU
+    tensors)."""
     dev = state.st.device
     # a fill on the device, not a copy from the host (which would wait for
     # the device's stream)
@@ -518,9 +526,6 @@ def scored_survivors(index_sig, index_pos, index_bb,
     means FASTA constant quality 30 (Pattern.hpp:42-45); `tables` is None
     when scores=False. Reads whose candidates exceed the caps are flagged
     in Survivors.overflow for the driver's rerun."""
-    if quals is None:
-        quals = torch.full(codes.shape, 30, dtype=torch.int8,
-                           device=codes.device)
     surv, tw = find_survivors(
         index_sig, index_pos, index_bb,
         words, nbits, ncum, frag_offsets,
@@ -529,7 +534,8 @@ def scored_survivors(index_sig, index_pos, index_bb,
         cand_cap=cand_cap, survivor_cap=survivor_cap,
         bsearch_steps=bsearch_steps, text_has_n=text_has_n)
     if scores:
-        surv = score_survivors(surv, tw, codes, quals, tables)
+        surv, _ = score_fold(surv, tw=tw, codes=codes, quals=quals,
+                             tables=tables)
     return surv
 
 
@@ -541,20 +547,26 @@ def match_step(index_sig, index_pos, index_bb,
                totalkmax: int, cand_cap: int, survivor_cap: int,
                scores: bool, matchall: bool = False, bsearch_steps: int = 0,
                text_has_n: bool = True):
-    """One (read batch x index shard) step: scored_survivors, then the
-    automaton. Returns (new_state, survivors) for matchUnique and (state,
-    CompactHits) for matchAll (matchall=True skips the automaton, and
-    `state` may be None: the hits go to the host for dedup and printing,
+    """One (read batch x index shard) step: find the survivors, then score
+    them and fold them into the automaton in one score_fold call. Returns
+    (new_state, survivors) for matchUnique and (state, CompactHits) for
+    matchAll (matchall=True skips the automaton, and `state` may be None:
+    the hits go to the host for dedup and printing,
     matchAllImplementation.cpp:99-185)."""
-    surv = scored_survivors(
+    surv, tw = find_survivors(
         index_sig, index_pos, index_bb, words, nbits, ncum, frag_offsets,
-        codes, quals, read_valid, tables=tables, seedl=seedl,
-        seedkmax=seedkmax, totalkmax=totalkmax, cand_cap=cand_cap,
-        survivor_cap=survivor_cap, scores=scores,
+        codes, read_valid, seedl=seedl, seedkmax=seedkmax,
+        totalkmax=totalkmax, cand_cap=cand_cap, survivor_cap=survivor_cap,
         bsearch_steps=bsearch_steps, text_has_n=text_has_n)
+    score_in = dict(tw=tw, codes=codes, quals=quals, tables=tables) \
+        if scores else {}
     if matchall:
+        if scores:
+            surv, _ = score_fold(surv, **score_in)
         # hit capacity scales with the survivor cap: escalated reruns on
         # repeat-rich genomes legitimately return hundreds of hits per read
         B, S = surv.valid.shape
         return state, compact_hits(surv, cap=max(2 * B, B * S // 2))
-    return fold_unique(state, surv, fileid, epsilon, scores=scores), surv
+    surv, state = score_fold(surv, state, fileid=fileid, epsilon=epsilon,
+                             scores=scores, **score_in)
+    return state, surv

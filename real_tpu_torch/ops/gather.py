@@ -39,7 +39,7 @@ import torch
 
 from real_tpu_torch.index.signatures import (NUM_LISTS,
                                              logical_shift_right)
-from real_tpu_torch.ops import cuda_build, pack
+from real_tpu_torch.ops import cuda_build, pack, scorefold
 from real_tpu_torch.text.packed import (MASK32, i32_bits,
                                         pair_mismatch_count, u32)
 
@@ -57,45 +57,10 @@ _ARGTYPES = {
     "verify_windows_i32": [_P, _I64, _P, _P, _P, _P, _I64, _INT, _INT,
                            _P, _P, _P, _P, _P, _P, _P],
 }
-_bound = {}
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
-    """Launch the C entry point `entry` (built and bound on first use) on
-    `device`'s current stream; raises if the launch is refused."""
-    fn = _bound.get(entry)
-    if fn is None:
-        fn = getattr(cuda_build.load(KERNEL), entry)
-        fn.argtypes = _ARGTYPES[entry]
-        fn.restype = ctypes.c_int
-        _bound[entry] = fn
-    index = device.index
-    current = torch.cuda.current_device()
-    if index is None:
-        index = current
-    raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    stream = raw_stream(index) if raw_stream is not None \
-        else torch.cuda.current_stream(index).cuda_stream
-    if index == current:
-        rc = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-
-
-def _all_on_cpu(name: str, *tensors: torch.Tensor) -> bool:
-    """True when every tensor is on the CPU (the plain version serves
-    them), False when all are on one CUDA device; anything else raises."""
-    devices = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devices):
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(
-            f"{name}: tensors on {sorted(str(d) for d in devices)}; all "
-            "must be on one CUDA device (or the CPU)")
-    return False
+    cuda_build.launch(KERNEL, entry, _ARGTYPES[entry], device, *args)
 
 
 def _check_table(name: str, what: str, t: torch.Tensor,
@@ -138,7 +103,7 @@ def gather_word_windows(words: torch.Tensor, idx: torch.Tensor,
     offsets of any shape. CPU tensors take gather_word_windows_ref; CUDA
     tensors launch the kernel, and anything else raises."""
     name = "gather_word_windows"
-    if _all_on_cpu(name, words, idx):
+    if cuda_build.all_on_cpu(name, words, idx):
         return gather_word_windows_ref(words, idx, w)
     _check_table(name, "words", words)
     if idx.dtype != torch.int32:
@@ -222,7 +187,8 @@ def probe_candidates(index_sig: torch.Tensor, index_bb: torch.Tensor,
     CPU tensors take probe_candidates_ref; CUDA tensors launch the kernel,
     and anything else raises."""
     name = "probe_candidates"
-    if _all_on_cpu(name, index_sig, index_bb, probe_sig, read_valid):
+    if cuda_build.all_on_cpu(name, index_sig, index_bb, probe_sig,
+                             read_valid):
         return probe_candidates_ref(index_sig, index_bb, probe_sig,
                                     read_valid, bucket_shift, k1)
     wide = index_sig.dtype == torch.int64
@@ -346,7 +312,7 @@ def verify_windows(words: torch.Tensor, pos: torch.Tensor,
     CPU tensors take verify_windows_ref; CUDA tensors launch the kernel,
     and anything else raises."""
     name = "verify_windows"
-    if _all_on_cpu(name, words, pos, inv, words_s, words_r):
+    if cuda_build.all_on_cpu(name, words, pos, inv, words_s, words_r):
         return verify_windows_ref(words, pos, inv, words_s, words_r, patl,
                                   seedl)
     kw = (patl + 15) // 16
@@ -391,13 +357,15 @@ verify_windows.launches = 0
 
 
 def launch_counts() -> dict:
-    """The launch counts of the three entry points and of the genome pack
-    (ops/pack.py, one launch set a text) since the last reset."""
+    """The launch counts of the three entry points, of the genome pack
+    (ops/pack.py, one launch set a text) and of the score and fold
+    (ops/scorefold.py, one a call) since the last reset."""
     return {"probe_candidates": probe_candidates.launches,
             "probe_candidates_wide": probe_candidates.launches_wide,
             "verify_windows": verify_windows.launches,
             "gather_word_windows": gather_word_windows.launches,
-            "pack_text": pack.pack_text.launches}
+            "pack_text": pack.pack_text.launches,
+            "score_fold": scorefold.score_fold.launches}
 
 
 def reset_launch_counts() -> None:
@@ -407,3 +375,4 @@ def reset_launch_counts() -> None:
     probe_candidates.launches_wide = 0
     verify_windows.launches = 0
     pack.pack_text.launches = 0
+    scorefold.score_fold.launches = 0

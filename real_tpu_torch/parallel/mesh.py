@@ -53,10 +53,10 @@ import torch
 import torch.distributed as dist
 
 from real_tpu_torch.engine.matchstep import (MatchState, Survivors,
-                                             compact_hits, fold_unique,
-                                             scored_survivors)
+                                             compact_hits, scored_survivors)
 from real_tpu_torch.index.build import SignatureIndex, build_index
 from real_tpu_torch.ops import gather as gather_ops
+from real_tpu_torch.ops.scorefold import score_fold
 from real_tpu_torch.text.packed import PackedText
 
 
@@ -150,8 +150,9 @@ def merge_shard_major(parts: List[Survivors], state: MatchState, fileid: int,
                       matchall: bool = False):
     """Fold a row's survivors in shard-major order (real_tpu/parallel/
     mesh.py sharded_match_step): [n_shard] x [B, S] -> [B, n_shard * S],
-    the overflow flags OR'd over the shards, then fold_unique, or for
-    matchAll compact_hits with cap = max(2B, B * n_shard * S // 2).
+    the overflow flags OR'd over the shards, then the fold alone of
+    ops/scorefold.py score_fold (the shards scored their own lanes), or
+    for matchAll compact_hits with cap = max(2B, B * n_shard * S // 2).
     Returns (new_state, overflow [B]), or (state, CompactHits) for
     matchAll, whose row ids are local to the row's batch."""
     seq = Survivors(*(torch.cat([getattr(p, f) for p in parts], dim=1)
@@ -161,8 +162,9 @@ def merge_shard_major(parts: List[Survivors], state: MatchState, fileid: int,
     if matchall:
         B, L = seq.valid.shape
         return state, compact_hits(seq, cap=max(2 * B, B * L // 2))
-    return (fold_unique(state, seq, fileid, epsilon, scores=scores),
-            seq.overflow)
+    _, state = score_fold(seq, state, fileid=fileid, epsilon=epsilon,
+                          scores=scores)
+    return state, seq.overflow
 
 
 def sharded_match_step(index_sig, index_pos, index_bb,

@@ -241,9 +241,9 @@ def test_find_survivors_equals_real_tpu(patl, K, genome):
         np.testing.assert_array_equal(a, b, err_msg=f)
     assert len(ttw) == len(jtw)
     for a, b in zip(jtw, ttw):
-        assert b.dtype == torch.int64
-        np.testing.assert_array_equal(np.asarray(a).astype(np.int64),
-                                      b.numpy())
+        assert b.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(a).astype(np.uint32),
+                                      b.numpy().view(np.uint32))
     assert np.asarray(jsurv.valid).any()
     if genome == "all_t" or K == 4:
         assert np.asarray(jsurv.overflow).any()

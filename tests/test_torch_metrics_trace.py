@@ -62,10 +62,11 @@ def test_metrics_file_has_real_tpus_keys_and_counts(tmp_path, case,
     (port_out, port), (j_out, j) = runs["port"], runs["real_tpu"]
     assert port_out == j_out and port_out.count(b"\n") > 200
     assert set(port) - set(j) == PORT_EXTRA_KEYS
-    # the match's hand kernels and the genome pack's, none on the CPU
+    # the match's hand kernels, the genome pack's and the score and
+    # fold's, none on the CPU
     assert set(port["kernel_launches"]) == {
         "probe_candidates", "probe_candidates_wide", "verify_windows",
-        "gather_word_windows", "pack_text"}
+        "gather_word_windows", "pack_text", "score_fold"}
     assert set(port["kernel_launches"].values()) == {0}
     assert set(j) <= set(port) and RUN_KEYS <= set(j)
     assert port["overflow_rerun_reads"] == j["overflow_rerun_reads"] > 0

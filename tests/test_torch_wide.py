@@ -228,9 +228,10 @@ def test_wide_match_step_equals_real_tpu(case):
         a, b = np.asarray(getattr(jsurv, f)), getattr(tsurv, f).numpy()
         assert a.dtype == b.dtype, f
         np.testing.assert_array_equal(a, b, err_msg=f)
+    assert len(ttw) == len(jtw)
     for a, b in zip(jtw, ttw):
-        np.testing.assert_array_equal(np.asarray(a).astype(np.int64),
-                                      b.numpy())
+        np.testing.assert_array_equal(np.asarray(a).astype(np.uint32),
+                                      b.numpy().view(np.uint32))
     jv = np.asarray(jsurv.valid)
     assert (jv & np.asarray(jsurv.inv)).any()
     assert (jv & ~np.asarray(jsurv.inv)).any()
