@@ -1,9 +1,8 @@
-"""End-to-end matchUnique and matchAll drivers, on one device or as one
-rank of a mesh.
+"""End-to-end matchUnique and matchAll drivers, on one device or on a mesh.
 
 Counterpart of real_tpu/engine/driver.py (run_match_unique and
-run_match_all on their sequential single-device path). Loop structure
-mirrors the reference (matchUniqueImplementation.cpp:1082-1489):
+run_match_all). Loop structure mirrors the reference
+(matchUniqueImplementation.cpp:1082-1489):
 
     for each text file:                 (getFileList, ".fa" suffix)
       build packed text + fragment ranges
@@ -14,36 +13,37 @@ mirrors the reference (matchUniqueImplementation.cpp:1082-1489):
           match_step(...)               (state persists per read)
     final pass: format records in read order
 
-Units run in ascending window order, one after the other into the same
-per-batch states: the scored matchUnique fold is order-defined, so any
-other order could change records. Shard windows are disjoint, so matchAll
-sees each hit once. At most two units are in flight (one when the plan
-serializes builds, which frees a unit's lists before the next build).
-Reads stay on the device across units when their packed bytes fit the
-resident budget; otherwise io/pipeline.py streams them once per unit.
+A job is one skeleton (_run) over a route, in a mode. The route is how the
+run spreads its work, chosen in one place (_route): one device
+(SeqLayout; with -exchange the ranks of a multi-process run, each on its
+own read slice (parallel/multihost.py), split the index build and load
+each other's shards); a rank of a rank mesh (MeshPlan, plan_mesh;
+cfg.use_mesh, parallel/mesh.py), whose ranks form a dp x shard grid: each
+dp row matches one read slice, and in each pass every rank of a row builds
+its own shard and the row gathers and folds its survivors shard-major
+after every step; or an in-process mesh (LocalLayout over
+local_mesh_cells: real_tpu's default on a host of several devices), the
+same grid driven by one process, one mesh per text shaped by its plan,
+each batch split over the dp rows (a rank of a multi-process job drives
+such a mesh of its own cards over its read slice, real_tpu's multi-host
+design). Every route's units (shards, or passes) run through one loop
+(_foreach_unit) in ascending window order into the same per-batch states:
+the scored matchUnique fold is order-defined, so any other order could
+change records. Shard windows are disjoint, so matchAll sees each hit
+once. At most two units are in flight (one when the plan serializes
+builds, which frees a unit's lists before the next build). Reads stay on
+the device across units when their packed bytes fit the resident budget;
+otherwise io/pipeline.py streams them once per unit.
 
-matchUnique keeps per-read best-hit state on the device across files and
-units; matchAll compacts each step's hits on the device and sorts and
-dedups all of them on the host. Reads whose candidates overflow the caps
-are rerun from scratch with 16x caps — the fixed-shape answer to
-std::equal_range's unbounded ranges; a single-unit run keeps its index for
+The mode is what matchUnique and matchAll do differently: _UniqueMode
+keeps per-read best-hit state on the device across files and units;
+_AllMode compacts each step's hits on the device and sorts and dedups all
+of them on the host. Reads whose candidates overflow the caps are rerun
+from scratch with 16x caps — the fixed-shape answer to std::equal_range's
+unbounded ranges; a single-unit run of one device keeps its index for
 those reruns. With -ckpt the state goes to disk after completed units and
 a later run skips them (engine/checkpoint.py); every blocking device fetch
-sits under the watchdog (utils/watchdog.py). In a multi-process run each
-process matches its own read slice (parallel/multihost.py); with -exchange
-the ranks split the index build between them and load each other's
-shards. In a rank mesh run (cfg.use_mesh, parallel/mesh.py) the ranks
-form a dp x shard grid: plan_mesh lays the run out once, each dp row
-matches one read slice, and in each pass ("unit") every rank of a row
-builds its own shard and the row gathers and folds its survivors
-shard-major after every step (_foreach_shard_mesh). The in-process mesh
-(local_mesh_cells: real_tpu's default on a host of several devices) is
-the same grid of devices driven by one process: each text gets its own
-mesh, shaped by its shard plan (_local_layout), every batch is split over
-the dp rows, and each pass builds every cell's shard and folds each row's
-survivors on the row's home device (_foreach_shard_local). A rank of a
-multi-process job drives such a mesh of its own cards over its read slice
-(real_tpu's multi-host design), exchanging nothing with the other ranks.
+sits under the watchdog (utils/watchdog.py).
 
 Entry points run on the card: `device` defaults to "cuda" and raises
 without CUDA; only an explicit device="cpu" runs on the CPU.
@@ -58,7 +58,7 @@ import functools
 import os
 import sys
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +68,8 @@ from real_tpu_torch import native
 from real_tpu_torch.config import RealConfig
 from real_tpu_torch.engine import checkpoint as ckpt_mod
 from real_tpu_torch.engine.matchstep import (CompactHits, MatchState,
-                                             initial_state, match_step)
+                                             Survivors, initial_state,
+                                             match_step)
 from real_tpu_torch.index.build import (SignatureIndex, build_index,
                                         pick_bucket_bits, shard_windows)
 from real_tpu_torch.io import fasta, pipeline, reads as reads_io
@@ -266,20 +267,6 @@ class MatchResult:
     metrics: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
-def _text_usable(cfg: RealConfig, tf: TextFile) -> bool:
-    text = tf.packed
-    if text.n < cfg.seedl:
-        print(f"File {tf.name} is too small for seed length, skipping it.",
-              file=sys.stderr)
-        return False
-    if text.num_fragments > MAX_FRAGMENTS_PER_FILE:
-        print(f"Number of fragments {text.num_fragments + 1} in file is "
-              "larger than limit we can handle, skipping it.",
-              file=sys.stderr)
-        return False
-    return True
-
-
 class _Progress:
     """stderr progress (with -v) + per-phase host-clock timers: a phase
     is a span of the job (utils/spans.py), and phase_s sums their
@@ -393,14 +380,85 @@ class _DispatchWindow:
 
 
 @dataclasses.dataclass
-class SeqLayout:
+class _Unit:
+    """A unit of the unit loop: an index shard of a text on one device, or
+    a pass of a mesh (every shard of it built at once). build() makes its
+    index (an in-process mesh's pass: its cells' indexes); rows(source,
+    index) yields each batch's rows: per dp row (patids, step), step(state,
+    fileid, epsilon, **kw) the row's match step bound to its rows and to
+    the unit's index and text. `devices` are those whose events bound the
+    units in flight, `homes` each dp row's home (None: the run's
+    device)."""
+    fi: int
+    text: PackedText
+    windows: int                  # windows of its shard (of each shard)
+    serial: bool                  # its plan serializes the builds
+    build: Callable[[], object]
+    rows: Callable
+    what: str                     # progress line: "shard 1/3", "pass 1/2"
+    sizes: str                    # progress line: the shards' size
+    bbits: Optional[int] = None   # bucket width; None: the built index's
+    key: Optional[tuple] = None   # in the single-unit index cache
+    devices: Optional[List[torch.device]] = None
+    homes: Optional[List[torch.device]] = None
+
+
+def _device_rows(step, t: PackedText, source: pipeline.BatchSource, index):
+    """One device's (one rank's) rows: the whole batch, and `step`
+    (match_step, sharded_match_step)."""
+    for b in source:
+        yield [(b.patids, functools.partial(
+            step, index.sig, index.pos, index.bb, t.words, t.nbits, t.ncum,
+            t.frag_offsets, b.codes, b.quals, b.valid))]
+
+
+class _Route:
+    """A way a run spreads its work (SeqLayout, MeshPlan, LocalLayout) as
+    the job and the unit loop see it: tag() keys the checkpoint, units()
+    lists the units, meshes() are those whose gathers the loop's account
+    adds (`mesh`, `mesh_gathers`, the `mesh_gather` phase)."""
+    exchange = None
+
+    def meshes(self) -> Optional[list]:
+        return None
+
+    def agree_resume(self, units_done: int) -> bool:
+        return True
+
+
+def _usable_texts(cfg: RealConfig, texts: List[TextFile],
+                  extra_reserved: int):
+    """The texts a run matches, as (fi, packed), and the bytes a planner
+    reserves: ALL of them (split oversized files keep every sub-text
+    uploaded for the whole run) plus extra_reserved (resident reads, the
+    match step's workspace). A text too small or of too many fragments is
+    skipped with a message."""
+    usable = []
+    for fi, tf in enumerate(texts):
+        if tf.packed.n < cfg.seedl:
+            print(f"File {tf.name} is too small for seed length, skipping "
+                  "it.", file=sys.stderr)
+        elif tf.packed.num_fragments > MAX_FRAGMENTS_PER_FILE:
+            print(f"Number of fragments {tf.packed.num_fragments + 1} in file"
+                  " is larger than limit we can handle, skipping it.",
+                  file=sys.stderr)
+        else:
+            usable.append((fi, tf.packed))
+    return usable, sum(_text_bytes(t) for _, t in usable) + extra_reserved
+
+
+@dataclasses.dataclass
+class SeqLayout(_Route):
     """A one-device run's layout: for each usable text, its shard bounds
-    and shard plan, and the bytes the plans reserved. The run's checkpoint
-    is keyed by it (tag): units are counted in this layout, so a
-    checkpoint of another plan would skip other windows."""
+    and shard plan, the bytes the plans reserved, the read count of the
+    bucket widths and the exchange the plan was agreed through. The run's
+    checkpoint is keyed by it (tag): units are counted in this layout, so
+    a checkpoint of another plan would skip other windows."""
     texts: List[Tuple[int, PackedText, List[Tuple[int, int]],
                       plan.StreamShardPlan]]
     reserved_bytes: int
+    reads: int
+    exchange: Optional[multihost.BuildExchange] = None
 
     def tag(self) -> str:
         """A checkpoint belongs to each text's shard count and build
@@ -408,31 +466,45 @@ class SeqLayout:
         return "seq:" + str([(fi, sp.shards, sp.serial_build)
                              for fi, _, _, sp in self.texts]) + "-"
 
+    def units(self, cfg: RealConfig, texts) -> List[_Unit]:
+        return [_Unit(fi, text, e - s, splan.serial_build,
+                      functools.partial(_build, cfg, text, s, e - s,
+                                        self.reads, splan),
+                      functools.partial(_device_rows, match_step, text),
+                      f"shard {si + 1}/{len(bounds)}", f"{e - s} windows",
+                      key=(fi, s, e, cfg.seedl))
+                for fi, text, bounds, splan in self.texts
+                for si, (s, e) in enumerate(bounds)]
+
+    def plan_accounts(self, cfg: RealConfig, cand_cap: int) -> list:
+        return [_plan_account(cfg, sp, bounds, self.reads, cand_cap)
+                for _, _, bounds, sp in self.texts]
+
 
 @spans.traced("plan")
 def _seq_layout(cfg: RealConfig, texts: List[TextFile], dev: torch.device,
-                *, reads: int = 0, extra_reserved: int = 0,
-                streaming: bool = False, exchange=None) -> SeqLayout:
-    """Plan every usable text against ALL resident texts' bytes plus
-    extra_reserved (resident reads, the step's workspace). With an
-    exchange (a multihost.BuildExchange) every rank takes rank 0's plan:
-    its read slice, and so its budget, may differ from the others'."""
-    usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
-              if _text_usable(cfg, tf)]
-    reserved = sum(_text_bytes(t) for _, t in usable) + extra_reserved
+                source: pipeline.BatchSource, survivor_cap: int, *,
+                reads: int = 0, exchange=None) -> SeqLayout:
+    """Plan every usable text against ALL resident texts' bytes, the
+    resident reads and the step's workspace. With an exchange (a
+    multihost.BuildExchange) every rank takes rank 0's plan: its read
+    slice, and so its budget, may differ from the others'."""
+    usable, reserved = _usable_texts(
+        cfg, texts, source.resident_device_bytes
+        + _step_workspace_bytes(source.plans, survivor_cap))
     per_text = []
     for fi, text in usable:
         num_windows = text.n - cfg.seedl + 1
         splan = _plan_shards(cfg, text, dev, reserved_bytes=reserved,
-                             streaming=streaming, reads=reads)
+                             streaming=not source.resident, reads=reads)
         per_text.append((fi, text, _shard_bounds(num_windows, splan.shards),
                          splan))
     if exchange is not None:
-        texts_by_fi = {fi: text for fi, text in usable}
+        texts_by_fi = dict(usable)
         per_text = [(fi, texts_by_fi[fi], bounds, splan)
                     for fi, bounds, splan in exchange.agree(
                         [(fi, b, sp) for fi, _, b, sp in per_text])]
-    return SeqLayout(per_text, int(reserved))
+    return SeqLayout(per_text, int(reserved), reads, exchange)
 
 
 def _plan_account(cfg: RealConfig, splan: plan.StreamShardPlan,
@@ -449,98 +521,56 @@ def _plan_account(cfg: RealConfig, splan: plan.StreamShardPlan,
                                for w, b in zip(windows, bbits)])
 
 
-def _foreach_shard_seq(cfg: RealConfig, layout: SeqLayout, cand_cap: int,
-                       visit, prog: _Progress, *, skip_units: int = 0,
-                       index_cache: Optional[Dict] = None, reads: int = 0,
-                       exchange=None) -> Dict[str, object]:
-    """The outer loop: for each text and each of its index shards in
-    `layout`, call visit(fi, text, index, bsearch_steps). The first
-    skip_units (file, shard) units are skipped entirely (checkpoint
-    resume) — their index builds never run. Returns the loop's account of
-    itself.
-
-    exchange (the BuildExchange the layout was agreed through): every
-    rank builds and publishes the units it owns, then loads every unit,
-    its own included, from the exchange.
-
-    visit returns the events recorded after its last dispatch (none on
-    the CPU); at most 2 units are kept in flight, and 1 under a
-    serial_build plan, which also drops the previous unit's lists BEFORE
-    the next build so that the peak is one build and not lists plus a
-    build.
-
-    index_cache: a SINGLE-unit run parks its built index there so the
-    overflow rerun (driver recursion) reuses it instead of re-sorting.
-    Multi-unit runs never cache: extra shards held alive through the pass
-    loop are what the plan did not budget for."""
-    per_text = layout.texts
-    total_units = sum(len(b) for _, _, b, _ in per_text)
-    account = {"units": total_units, "units_skipped": 0,
-               "units_dispatched": 0, "reserved_bytes": layout.reserved_bytes,
-               "plans": [_plan_account(cfg, sp, bounds, reads, cand_cap)
-                         for _, _, bounds, sp in per_text]}
-    if exchange is not None:
-        u = 0
-        with prog.phase("index_build"):
-            for fi, text, bounds, splan in per_text:
-                for s, e in bounds:
-                    u += 1
-                    if u <= skip_units or not exchange.owns(u - 1):
-                        continue
-                    exchange.save(u - 1, _build(cfg, text, s, e - s, reads,
-                                                splan))
-    unit = 0
-    inflight: List = []
-    index = None
-    for fi, text, bounds, splan in per_text:
-        for si, (s, e) in enumerate(bounds):
-            unit += 1
-            if unit <= skip_units:
-                account["units_skipped"] += 1
-                continue
-            depth = 1 if splan.serial_build else 2
-            while len(inflight) >= depth:
-                _wait_events(cfg, inflight.pop(0), "index unit in flight")
-            if splan.serial_build:
-                index = None
-            ck = (fi, s, e, cfg.seedl)
-            cached = index_cache.get(ck) if index_cache is not None else None
-            if cached is not None:
-                index = cached
-            elif exchange is not None:
-                with prog.phase("index_load"):
-                    index = exchange.load(unit - 1)
-            else:
-                with prog.phase("index_build"):
-                    index = _build(cfg, text, s, e - s, reads, splan)
-                if index_cache is not None and total_units == 1:
-                    index_cache[ck] = index
-            steps = _bsearch_steps_static(e - s, cand_cap, index.bucket_bits)
-            prog.event(f"file {fi}: index shard {si + 1}/{len(bounds)} "
-                       f"dispatched ({e - s} windows, bsearch={steps}, "
-                       f"bbits={index.bucket_bits})")
-            with prog.phase("match"):
-                handle = visit(fi, text, index, steps)
-            account["units_dispatched"] += 1
-            if handle is not None:
-                inflight.append(handle)
-    return account
-
-
 @dataclasses.dataclass
-class MeshPlan:
+class MeshPlan(_Route):
     """A mesh run's layout, agreed by every rank before the run
     (plan_mesh): this rank's Mesh, its row's read slice [lo, hi) of the
     whole read set, the whole set's read count (the bucket-width hint, so
     that every shard and every row builds the same table width), and rank
     0's shard plan of each usable text with the bytes it reserved. The
-    overflow reruns keep it: they run no collective over the whole job."""
+    overflow reruns keep it: they run no collective over the whole job.
+    A unit is a pass: this rank builds its shard, each step gathers."""
     mesh: mesh_mod.Mesh
     lo: int
     hi: int
     num_reads: int
     plans: Dict[int, plan.StreamShardPlan]
     reserved_bytes: int
+
+    def tag(self) -> str:
+        """A checkpoint belongs to its grid and each text's shards."""
+        m = self.mesh
+        return (f"mesh{m.n_dp}x{m.n_shard}.{m.dp}.{m.shard}:"
+                f"{sorted((fi, p.shards) for fi, p in self.plans.items())}"
+                "-")
+
+    def units(self, cfg: RealConfig, texts) -> List[_Unit]:
+        m = self.mesh
+        step = functools.partial(sharded_match_step, mesh=m)
+        return [_Unit(fi, texts[fi].packed, per, serial, functools.partial(
+                    mesh_mod.build_sharded_index, texts[fi].packed,
+                    cfg.seedl, r * m.n_shard * per, per, m, bbits),
+                    functools.partial(_device_rows, step, texts[fi].packed),
+                    f"pass {r + 1}/{rounds}",
+                    f"shard {m.shard} of {m.n_shard} x {per} windows", bbits)
+                for fi, splan in self.plans.items()
+                for r, rounds, per, bbits, serial in _mesh_passes(
+                    cfg, texts[fi].packed, splan, m.n_shard, self.num_reads)]
+
+    def plan_accounts(self, cfg: RealConfig, cand_cap: int) -> list:
+        return [dataclasses.asdict(sp) for sp in self.plans.values()]
+
+    def meshes(self) -> list:
+        return [self.mesh]
+
+    def mesh_account(self) -> dict:
+        m = self.mesh
+        return {"n_dp": m.n_dp, "n_shard": m.n_shard, "dp": m.dp,
+                "shard": m.shard}
+
+    def agree_resume(self, units_done: int) -> bool:
+        """Only when every rank of the row holds the same unit count."""
+        return bool(mesh_mod.agree_resume(self.mesh, units_done))
 
 
 @spans.traced("plan")
@@ -570,11 +600,9 @@ def plan_mesh(cfg: RealConfig, rs: reads_io.ReadSet,
     read_bytes = sum(pipeline.packed_batch_bytes(
         p.rows, p.patl, rs.quals_flat is not None) for p in batches)
     resident = read_bytes <= _resident_budget(cfg, [dev])
-    usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
-              if _text_usable(cfg, tf)]
-    reserved = (sum(_text_bytes(t) for _, t in usable)
-                + (read_bytes if resident else 0)
-                + _step_workspace_bytes(batches, cfg.survivor_cap))
+    usable, reserved = _usable_texts(
+        cfg, texts, (read_bytes if resident else 0)
+        + _step_workspace_bytes(batches, cfg.survivor_cap))
     box = [None]
     if topo.process_index == 0:
         box[0] = {fi: _plan_shards(cfg, text, dev, reserved_bytes=reserved,
@@ -612,56 +640,6 @@ def _mesh_passes(cfg: RealConfig, text: PackedText,
                              cap=splan.bucket_bits_cap)
     return [(r, rounds, per_shard, bbits, splan.serial_build)
             for r in range(rounds) if r * n_shard * per_shard < nw]
-
-
-def _foreach_shard_mesh(cfg: RealConfig, texts: List[TextFile],
-                        cand_cap: int, visit, prog: _Progress, mp: MeshPlan,
-                        *, skip_units: int = 0) -> Dict[str, object]:
-    """The rank mesh's outer loop (real_tpu/engine/driver.py
-    _foreach_shard_mesh): each text's passes (_mesh_passes) on the run's
-    one mesh. A pass is a unit: this rank builds its own
-    shard of it and calls visit(fi, text, index, bsearch_steps), whose
-    steps gather over the row. In flight and serial builds as in
-    _foreach_shard_seq. Returns the loop's account, with the mesh and the
-    gathers run, and adds their seconds to the `mesh_gather` phase."""
-    mesh = mp.mesh
-    passes = [(fi, texts[fi].packed, *p) for fi, splan in mp.plans.items()
-              for p in _mesh_passes(cfg, texts[fi].packed, splan,
-                                    mesh.n_shard, mp.num_reads)]
-    account = {"units": len(passes), "units_skipped": 0,
-               "units_dispatched": 0, "reserved_bytes": mp.reserved_bytes,
-               "plans": [dataclasses.asdict(sp) for sp in mp.plans.values()],
-               "mesh": {"n_dp": mesh.n_dp, "n_shard": mesh.n_shard,
-                        "dp": mesh.dp, "shard": mesh.shard}}
-    gather_s, gathers = mesh.gather_s, mesh.gathers
-    inflight: List = []
-    index = None
-    for unit, (fi, text, r, rounds, per_shard, bbits, serial) in \
-            enumerate(passes, 1):
-        if unit <= skip_units:
-            account["units_skipped"] += 1
-            continue
-        while len(inflight) >= (1 if serial else 2):
-            _wait_events(cfg, inflight.pop(0), "index unit in flight")
-        if serial:
-            index = None
-        with prog.phase("index_build"):
-            index = mesh_mod.build_sharded_index(
-                text, cfg.seedl, r * mesh.n_shard * per_shard, per_shard,
-                mesh, bbits)
-        steps = _bsearch_steps_static(per_shard, cand_cap, bbits)
-        prog.event(f"file {fi}: index pass {r + 1}/{rounds} dispatched "
-                   f"(shard {mesh.shard} of {mesh.n_shard} x {per_shard} "
-                   f"windows, bsearch={steps}, bbits={bbits})")
-        with prog.phase("match"):
-            handle = visit(fi, text, index, steps)
-        account["units_dispatched"] += 1
-        if handle is not None:
-            inflight.append(handle)
-    prog.phase_s["mesh_gather"] = (prog.phase_s.get("mesh_gather", 0.0)
-                                   + mesh.gather_s - gather_s)
-    account["mesh_gathers"] = mesh.gathers - gathers
-    return account
 
 
 def local_mesh_cells(cfg: RealConfig,
@@ -704,15 +682,18 @@ def local_mesh_cells(cfg: RealConfig,
 
 
 @dataclasses.dataclass
-class LocalLayout:
+class LocalLayout(_Route):
     """An in-process mesh run's layout: for each usable text, its shard
     plan and its own LocalMesh over the cells (real_tpu re-meshes per
-    text), the bytes the plans reserved on each device, and the rank of
-    the job that runs it (0 of 1 outside a job)."""
+    text), the bytes the plans reserved on each device, the rank of the
+    job that runs it (0 of 1 outside a job) and the read count of the
+    bucket widths. A unit is a pass on its text's mesh: every cell's shard
+    is built, each row's survivors fold on the row's home."""
     cells: List[torch.device]
     texts: List[Tuple[int, plan.StreamShardPlan, mesh_mod.LocalMesh]]
     reserved_bytes: int
     topo: multihost.HostTopology
+    reads: int
 
     def tag(self) -> str:
         """A checkpoint belongs to its rank, its cells and each text's
@@ -723,6 +704,65 @@ class LocalLayout:
                 f"{self.topo.process_count}." if self.topo.process_count > 1
                 else "")
         return f"{rank}local{len(self.cells)}:{grids}-"
+
+    def units(self, cfg: RealConfig, texts) -> List[_Unit]:
+        replicas: Dict[int, Dict] = {}          # one text's at a time
+        return [_Unit(fi, texts[fi].packed, per, serial, functools.partial(
+                    _build_local, replicas, cfg, fi, texts[fi].packed, m,
+                    r * m.n_shard * per, per, bbits),
+                    functools.partial(_local_rows, m, replicas, fi),
+                    f"pass {r + 1}/{rounds}",
+                    f"{m.n_dp} x {m.n_shard} cells, {per} windows per shard",
+                    bbits, devices=m.devices,
+                    homes=[m.home(d) for d in range(m.n_dp)])
+                for fi, splan, m in self.texts
+                for r, rounds, per, bbits, serial in _mesh_passes(
+                    cfg, texts[fi].packed, splan, m.n_shard, self.reads)]
+
+    def plan_accounts(self, cfg: RealConfig, cand_cap: int) -> list:
+        return [dataclasses.asdict(sp) for _, sp, _ in self.texts]
+
+    def meshes(self) -> list:
+        return [m for _, _, m in self.texts]
+
+    def mesh_account(self) -> dict:
+        """The cells, each text's grid and each cell's kernel launches."""
+        meshes = self.meshes()
+        launches: Dict[int, Dict[str, int]] = {}
+        for m in meshes:
+            for c, counts in m.launches.items():
+                tot = launches.setdefault(c, dict.fromkeys(counts, 0))
+                for k, v in counts.items():
+                    tot[k] += v
+        return {"rank": self.topo.process_index,
+                "ranks": self.topo.process_count,
+                "n_dp": meshes[0].n_dp if meshes else 0,
+                "n_shard": meshes[0].n_shard if meshes else 0,
+                "devices": [str(d) for d in self.cells],
+                "grids": [[fi, m.n_dp, m.n_shard] for fi, _, m in self.texts],
+                "cell_launches": [launches.get(c, {}) for c in
+                                  range(len(self.cells))]}
+
+
+def _build_local(replicas: Dict[int, Dict], cfg: RealConfig, fi: int,
+                 text: PackedText, m: mesh_mod.LocalMesh, start: int,
+                 per_shard: int, bbits: int):
+    """Every cell's shard of a pass, from the text's replicas."""
+    if fi not in replicas:
+        replicas.clear()
+        replicas[fi] = mesh_mod.replicate_text(text, m.devices)
+    return mesh_mod.build_local_shards(replicas[fi], cfg.seedl, start,
+                                       per_shard, m, bbits)
+
+
+def _local_rows(m: mesh_mod.LocalMesh, replicas: Dict[int, Dict], fi: int,
+                source: pipeline.BatchSource, indexes):
+    """Each dp row's slice of the batch, and local_row_step on its cells."""
+    for p, parts in zip(source.plans, source.rows(m.layout())):
+        yield [(pipeline.row_plan(p, m.n_dp, d).patids,
+                functools.partial(mesh_mod.local_row_step, m, d, indexes,
+                                  replicas[fi], parts[d]))
+               for d in range(m.n_dp)]
 
 
 @spans.traced("plan")
@@ -735,11 +775,9 @@ def _local_layout(cfg: RealConfig, texts: List[TextFile],
     shards) (real_tpu/engine/driver.py _foreach_shard_mesh). Reserved on
     each device: every text, the whole read set when resident (it bounds
     the slices of the rows there) and one step's workspace."""
-    usable = [(fi, tf.packed) for fi, tf in enumerate(texts)
-              if _text_usable(cfg, tf)]
-    reserved = (sum(_text_bytes(t) for _, t in usable)
-                + source.resident_device_bytes
-                + _step_workspace_bytes(source.plans, survivor_cap))
+    usable, reserved = _usable_texts(
+        cfg, texts, source.resident_device_bytes
+        + _step_workspace_bytes(source.plans, survivor_cap))
     per_text = []
     for fi, text in usable:
         splan = max((_plan_shards(cfg, text, dev, reserved_bytes=reserved,
@@ -751,157 +789,84 @@ def _local_layout(cfg: RealConfig, texts: List[TextFile],
         per_text.append((fi, splan,
                          mesh_mod.make_local_mesh(n_dp, n_shard, cells)))
     return LocalLayout(cells, per_text, reserved,
-                       multihost.current_topology())
+                       multihost.current_topology(), reads)
 
 
-def _foreach_shard_local(cfg: RealConfig, texts: List[TextFile],
-                         cand_cap: int, visit, prog: _Progress,
-                         layout: LocalLayout, *, skip_units: int = 0,
-                         reads: int = 0) -> Dict[str, object]:
-    """The in-process mesh's outer loop (real_tpu/engine/driver.py
-    _foreach_shard_mesh): each text's passes (_mesh_passes) on the
-    text's own mesh. A pass is a unit: the text is replicated to
-    the mesh's devices, every cell's shard is built, and visit(fi,
-    replicas, mesh, indexes, bsearch_steps) runs its steps. In flight and
-    serial builds as in _foreach_shard_seq. Returns the loop's account,
-    with the mesh (cells, each text's grid, each cell's kernel launches)
-    and the gathers, and adds their seconds to the `mesh_gather` phase."""
-    passes = [(fi, texts[fi].packed, mesh, *p)
-              for fi, splan, mesh in layout.texts
-              for p in _mesh_passes(cfg, texts[fi].packed, splan,
-                                    mesh.n_shard, reads)]
-    account = {"units": len(passes), "units_skipped": 0,
-               "units_dispatched": 0,
-               "reserved_bytes": layout.reserved_bytes,
-               "plans": [dataclasses.asdict(sp)
-                         for _, sp, _ in layout.texts]}
+def _foreach_unit(cfg: RealConfig, route: _Route, texts: List[TextFile],
+                  cand_cap: int, visit, prog: _Progress, *,
+                  skip_units: int = 0,
+                  index_cache: Optional[Dict] = None) -> Dict[str, object]:
+    """The unit loop of every route: for each unit in order, take its
+    index from index_cache, the exchange or a build, and call visit(unit,
+    index, bsearch_steps). The first skip_units units are skipped entirely
+    (checkpoint resume): their index builds never run. Returns the loop's
+    account of itself.
+
+    Under an exchange (the BuildExchange a one-device layout was agreed
+    through) every rank builds and publishes the units it owns, then loads
+    every unit, its own included, from the exchange.
+
+    visit returns the events recorded after its last dispatch (none on
+    the CPU); at most 2 units are kept in flight, and 1 under a
+    serial_build plan, which also drops the previous unit's lists BEFORE
+    the next build so that the peak is one build and not lists plus a
+    build.
+
+    index_cache: a SINGLE-unit run of one device parks its built index
+    there so the overflow rerun (driver recursion) reuses it instead of
+    re-sorting. Multi-unit runs never cache: extra shards held alive
+    through the pass loop are what the plan did not budget for."""
+    units = route.units(cfg, texts)
+    account = {"units": len(units), "units_skipped": 0,
+               "units_dispatched": 0, "reserved_bytes": route.reserved_bytes,
+               "plans": route.plan_accounts(cfg, cand_cap)}
+    meshes = route.meshes()
+    if meshes is not None:
+        gathers0 = (sum(m.gather_s for m in meshes),
+                    sum(m.gathers for m in meshes))
+    exchange = route.exchange
+    if exchange is not None:
+        with prog.phase("index_build"):
+            for i, u in enumerate(units[skip_units:], skip_units):
+                if exchange.owns(i):
+                    exchange.save(i, u.build())
+    index_cache = {} if index_cache is None else index_cache
     inflight: List = []
-    indexes = None
-    replicas: Dict[int, Dict] = {}
-    for unit, (fi, text, mesh, r, rounds, per_shard, bbits, serial) in \
-            enumerate(passes, 1):
-        if unit <= skip_units:
+    index = None
+    for i, u in enumerate(units):
+        if i < skip_units:
             account["units_skipped"] += 1
             continue
-        while len(inflight) >= (1 if serial else 2):
+        while len(inflight) >= (1 if u.serial else 2):
             _wait_events(cfg, inflight.pop(0), "index unit in flight")
-        if serial:
-            indexes = None
-        if fi not in replicas:            # one text's replicas at a time
-            replicas = {fi: mesh_mod.replicate_text(text, mesh.devices)}
-        with prog.phase("index_build"):
-            indexes = mesh_mod.build_local_shards(
-                replicas[fi], cfg.seedl, r * mesh.n_shard * per_shard,
-                per_shard, mesh, bbits)
-        steps = _bsearch_steps_static(per_shard, cand_cap, bbits)
-        prog.event(f"file {fi}: index pass {r + 1}/{rounds} dispatched "
-                   f"({mesh.n_dp} x {mesh.n_shard} cells, {per_shard} "
-                   f"windows per shard, bsearch={steps}, bbits={bbits})")
+        if u.serial:
+            index = None
+        if index_cache.get(u.key) is not None:
+            index = index_cache[u.key]
+        elif exchange is not None:
+            with prog.phase("index_load"):
+                index = exchange.load(i)
+        else:
+            with prog.phase("index_build"):
+                index = u.build()
+            if u.key is not None and len(units) == 1:
+                index_cache[u.key] = index
+        bbits = index.bucket_bits if u.bbits is None else u.bbits
+        steps = _bsearch_steps_static(u.windows, cand_cap, bbits)
+        prog.event(f"file {u.fi}: index {u.what} dispatched ({u.sizes}, "
+                   f"bsearch={steps}, bbits={bbits})")
         with prog.phase("match"):
-            handle = visit(fi, replicas[fi], mesh, indexes, steps)
+            handle = visit(u, index, steps)
         account["units_dispatched"] += 1
         if handle is not None:
             inflight.append(handle)
-    meshes = [m for _, _, m in layout.texts]
-    launches: Dict[int, Dict[str, int]] = {}
-    for m in meshes:
-        for c, counts in m.launches.items():
-            tot = launches.setdefault(c, dict.fromkeys(counts, 0))
-            for k, v in counts.items():
-                tot[k] += v
-    account["mesh"] = {
-        "rank": layout.topo.process_index,
-        "ranks": layout.topo.process_count,
-        "n_dp": meshes[0].n_dp if meshes else 0,
-        "n_shard": meshes[0].n_shard if meshes else 0,
-        "devices": [str(d) for d in layout.cells],
-        "grids": [[fi, m.n_dp, m.n_shard] for fi, _, m in layout.texts],
-        "cell_launches": [launches.get(c, {}) for c in
-                          range(len(layout.cells))]}
-    prog.phase_s["mesh_gather"] = (prog.phase_s.get("mesh_gather", 0.0)
-                                   + sum(m.gather_s for m in meshes))
-    account["mesh_gathers"] = sum(m.gathers for m in meshes)
+    if meshes is not None:
+        account["mesh"] = route.mesh_account()
+        prog.phase_s["mesh_gather"] = (prog.phase_s.get("mesh_gather", 0.0)
+                                       + sum(m.gather_s for m in meshes)
+                                       - gathers0[0])
+        account["mesh_gathers"] = sum(m.gathers for m in meshes) - gathers0[1]
     return account
-
-
-def _loop_metrics(account: Dict[str, object],
-                  source: pipeline.BatchSource) -> Dict[str, object]:
-    """What the unit loop and the batch source did, for the result's
-    metrics: units (planned, skipped on resume, dispatched), the shard
-    plans, the bytes the planner reserved, and the source's mode."""
-    return dict(account, source_resident=source.resident,
-                resident_read_bytes=source.resident_device_bytes,
-                streamed_batches=source.streamed_batches)
-
-
-_STATE_FIELDS = MatchState._fields
-
-
-class _RowStates:
-    """matchUnique's per-batch states and overflow flags, each batch's in
-    one chunk per dp row, on the row's home device: one chunk on the run's
-    device for a run of one device, one per row of the current text's mesh
-    for an in-process mesh (regroup moves them when a text's mesh has
-    other rows)."""
-
-    def __init__(self, plans, homes: List[torch.device]):
-        self.plans = plans
-        self.homes = list(homes)
-        n = len(self.homes)
-        self.state = {bi: [initial_state(p.rows // n, h) for h in self.homes]
-                      for bi, p in enumerate(plans)}
-        self.over = {bi: [torch.zeros(p.rows // n, dtype=torch.bool,
-                                      device=h) for h in self.homes]
-                     for bi, p in enumerate(plans)}
-
-    def _split(self, bi: int, full: MatchState, over: torch.Tensor) -> None:
-        n = len(self.homes)
-        r = self.plans[bi].rows // n
-        self.state[bi] = [MatchState(*(t[d * r:(d + 1) * r].to(h)
-                                       for t in full))
-                          for d, h in enumerate(self.homes)]
-        self.over[bi] = [over[d * r:(d + 1) * r].to(h)
-                         for d, h in enumerate(self.homes)]
-
-    def load(self, states: List[dict], overflow: List[np.ndarray]) -> None:
-        """A checkpoint's whole-batch states and overflow flags."""
-        for bi in range(len(self.plans)):
-            self._split(bi, MatchState(**{
-                f: torch.from_numpy(states[bi][f]) for f in _STATE_FIELDS}),
-                torch.from_numpy(overflow[bi]))
-
-    def regroup(self, homes: List[torch.device]) -> None:
-        """Re-chunk every batch over the rows of `homes` (stream-ordered
-        copies between devices; nothing moves when the rows are the
-        same)."""
-        if list(homes) == self.homes:
-            return
-        h0 = homes[0]
-        full = {bi: (MatchState(*(torch.cat([c[i].to(h0) for c in chunks])
-                                  for i in range(len(_STATE_FIELDS)))),
-                     torch.cat([o.to(h0) for o in self.over[bi]]))
-                for bi, chunks in self.state.items()}
-        self.homes = list(homes)
-        for bi, (st, over) in full.items():
-            self._split(bi, st, over)
-
-    def fetch(self, watchdog_s: float, what: str) -> List[list]:
-        """Every batch's state fields and overflow flags as numpy arrays,
-        the rows concatenated; the queued device work completes inside
-        this fetch."""
-        with watchdog(watchdog_s, what):
-            return [[np.concatenate([c[i].cpu().numpy() for c in chunks])
-                     for i in range(len(_STATE_FIELDS))]
-                    + [np.concatenate([o.cpu().numpy()
-                                       for o in self.over[bi]])]
-                    for bi, chunks in self.state.items()]
-
-
-def _check_step_scores(surv, what: str) -> None:
-    """-debug 1: a NaN score on a valid lane raises at the step that made
-    it (one device sync per step, like real_tpu's jax_debug_nans)."""
-    if bool((surv.valid & torch.isnan(surv.score)).any()):
-        raise FloatingPointError(f"NaN score on a valid lane in {what}")
 
 
 def _require(ok, what: str) -> None:
@@ -936,172 +901,6 @@ def validate_hits(cfg: RealConfig, cols) -> None:
         _require(np.isfinite(score).all(), "non-finite hit score")
 
 
-@spans.traced("driver")
-def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
-                     texts: List[TextFile], device="cuda",
-                     patid_filter: Optional[np.ndarray] = None,
-                     cand_cap: Optional[int] = None,
-                     survivor_cap: Optional[int] = None,
-                     mesh_plan: Optional[MeshPlan] = None,
-                     _depth: int = 0,
-                     _index_cache: Optional[Dict] = None) -> MatchResult:
-    """matchUnique over all texts; `texts` must live on `device`. In a
-    rank mesh run (cfg.use_mesh) `rs` is this rank's row slice and
-    mesh_plan its layout (plan_mesh); an in-process mesh run
-    (local_mesh_cells) matches all of `rs` on its cells. The per-step
-    -debug scan is the one-device path's, a mesh run checks the finished
-    result."""
-    dev = _check_run(cfg, texts, device)
-    mesh = _mesh_of(cfg, mesh_plan)
-    cells = local_mesh_cells(cfg, dev) if mesh is None else None
-    if _index_cache is None:
-        _index_cache = {}
-    cand_cap = cand_cap or cfg.cand_cap
-    survivor_cap = survivor_cap or cfg.survivor_cap
-    numpat = rs.num_reads
-    kw = _step_kwargs(cfg, cand_cap, survivor_cap)
-
-    result = MatchResult(
-        st=np.zeros(numpat, np.int32), pos=np.zeros(numpat, np.int32),
-        frag=np.zeros(numpat, np.int32), fileid=np.zeros(numpat, np.int32),
-        errs=np.zeros(numpat, np.int32),
-        score=np.full(numpat, -np.finfo(np.float32).max, np.float32))
-
-    prog = _Progress(cfg.verbose)
-    with prog.phase("setup"):
-        source = _make_source(cfg, rs, patid_filter, _depth, dev, cells)
-    plans = source.plans
-    layout = None if cells is None else _local_layout(
-        cfg, texts, cells, source, numpat, survivor_cap)
-    exchange = seq = None
-    if mesh is None and layout is None:
-        exchange = _make_exchange(cfg, _depth, dev)
-        seq = _seq_layout(cfg, texts, dev, reads=numpat,
-                          extra_reserved=source.resident_device_bytes
-                          + _step_workspace_bytes(plans, survivor_cap),
-                          streaming=not source.resident, exchange=exchange)
-    rows = _RowStates(plans, [cells[0] if cells else dev])
-
-    # checkpoint/resume: per-batch MatchState + overflow + completed-unit
-    # cursor; only the top-level pass checkpoints (escalation reruns are
-    # cheap re-derivations)
-    ck = None
-    skip_units = 0
-    unit_done = [0]
-    if cfg.checkpoint and _depth == 0 and patid_filter is None:
-        ck = ckpt_mod.Checkpoint(
-            cfg.checkpoint, _layout_tag(mesh_plan, layout, seq)
-            + ckpt_mod.fingerprint(cfg, texts, numpat, len(plans), cand_cap,
-                                   survivor_cap))
-        data = _load_checkpoint(ck, mesh)
-        if data:
-            skip_units = unit_done[0] = data["units_done"]
-            rows.load(data["states"], data["overflow"])
-            prog.event(f"resumed from checkpoint: {skip_units} units done")
-
-    def checkpoint_unit():
-        unit_done[0] += 1
-        if ck is None or unit_done[0] % max(cfg.checkpoint_every, 1):
-            return
-        host = rows.fetch(cfg.watchdog_s, "checkpoint state fetch")
-        ck.save(unit_done[0],
-                [dict(zip(_STATE_FIELDS, h[:-1])) for h in host],
-                [h[-1] for h in host])
-        prog.event(f"checkpoint saved ({unit_done[0]} units)")
-
-    win = _DispatchWindow(cfg, cells or [dev], enabled=not source.resident)
-
-    def visit(fi, text, index, steps):
-        for bi, b in enumerate(source):
-            args = (index.sig, index.pos, index.bb,
-                    text.words, text.nbits, text.ncum, text.frag_offsets,
-                    b.codes, b.quals, b.valid,
-                    rows.state[bi][0], fi,
-                    np.float32(cfg.filter_value(b.patl)))
-            step_kw = dict(bsearch_steps=steps, text_has_n=text.has_n, **kw)
-            if mesh is None:
-                rows.state[bi][0], surv = match_step(*args, **step_kw)
-                over = surv.overflow
-                if cfg.debug_checks and cfg.scores:
-                    _check_step_scores(surv, f"file {fi}, batch {bi}")
-            else:
-                rows.state[bi][0], over = sharded_match_step(
-                    *args, mesh=mesh, **step_kw)
-            rows.over[bi][0] |= over
-            win.push()
-        checkpoint_unit()
-        return _record_events([dev])
-
-    def visit_local(fi, replicas, m, indexes, steps):
-        rows.regroup([m.home(d) for d in range(m.n_dp)])
-        step_kw = dict(bsearch_steps=steps, **kw,
-                       text_has_n=next(iter(replicas.values())).has_n)
-        for bi, parts in enumerate(source.rows(m.layout())):
-            eps = np.float32(cfg.filter_value(plans[bi].patl))
-            for d in range(m.n_dp):
-                rows.state[bi][d], over = mesh_mod.local_row_step(
-                    m, d, indexes, replicas, parts[d], rows.state[bi][d],
-                    fi, eps, **step_kw)
-                rows.over[bi][d] |= over
-            win.push()
-        checkpoint_unit()
-        return _record_events(m.devices)
-
-    if mesh is not None:
-        account = _foreach_shard_mesh(cfg, texts, cand_cap, visit, prog,
-                                      mesh_plan, skip_units=skip_units)
-    elif layout is not None:
-        account = _foreach_shard_local(cfg, texts, cand_cap, visit_local,
-                                       prog, layout, skip_units=skip_units,
-                                       reads=numpat)
-    else:
-        account = _foreach_shard_seq(
-            cfg, seq, cand_cap, visit, prog, skip_units=skip_units,
-            index_cache=_index_cache, reads=numpat, exchange=exchange)
-
-    # the match loop only dispatches; its device work completes here
-    with prog.phase("drain"):
-        host = rows.fetch(cfg.watchdog_s, "matchUnique result drain")
-    overflow = np.zeros(numpat, bool)
-    with prog.phase("collect"):
-        for bi, p in enumerate(plans):
-            n = len(p.patids)
-            st, pos, frag, fileid, errs, score, over = host[bi]
-            result.st[p.patids] = st[:n]
-            result.pos[p.patids] = pos[:n]
-            result.frag[p.patids] = frag[:n]
-            result.fileid[p.patids] = fileid[:n]
-            result.errs[p.patids] = errs[:n]
-            result.score[p.patids] = score[:n]
-            overflow[p.patids[over[:n]]] = True
-
-    over_ids = np.flatnonzero(overflow)
-    result.metrics = {"phase_s": dict(prog.phase_s),
-                      "overflow_rerun_reads": int(len(over_ids)),
-                      **_loop_metrics(account, source)}
-    if len(over_ids):
-        if _depth >= 4:
-            raise RuntimeError(
-                f"{len(over_ids)} reads overflow candidate caps even at "
-                f"cand_cap={cand_cap}")
-        print(f"rerunning {len(over_ids)} overflowing reads with "
-              f"cand_cap={cand_cap * 16}", file=sys.stderr)
-        sub = run_match_unique(
-            cfg, rs, texts, device=dev, patid_filter=over_ids,
-            cand_cap=cand_cap * 16, survivor_cap=survivor_cap * 16,
-            mesh_plan=mesh_plan, _depth=_depth + 1,
-            _index_cache=_index_cache)
-        for f in ("st", "pos", "frag", "fileid", "errs", "score"):
-            getattr(result, f)[over_ids] = getattr(sub, f)[over_ids]
-        _add_rerun_phases(result.metrics["phase_s"], sub.metrics["phase_s"])
-    _print_phases(cfg, result.metrics["phase_s"])
-    if ck is not None:
-        ck.delete()
-    if cfg.debug_checks and _depth == 0:
-        validate_result(cfg, result, texts)
-    return result
-
-
 def _mesh_of(cfg: RealConfig,
              mesh_plan: Optional[MeshPlan]) -> Optional[mesh_mod.Mesh]:
     """The run's Mesh, or None for a run of one device; use_mesh without
@@ -1112,33 +911,6 @@ def _mesh_of(cfg: RealConfig,
                            "driver.plan_mesh (every rank of the job calls "
                            "it) as mesh_plan")
     return mesh_plan.mesh if mesh_plan is not None else None
-
-
-def _layout_tag(mesh_plan: Optional[MeshPlan],
-                layout: Optional[LocalLayout] = None,
-                seq: Optional[SeqLayout] = None) -> str:
-    """A checkpoint belongs to its run's layout: a mesh run's grid and
-    pass layout, a one-device run's shard plan."""
-    if layout is not None:
-        return layout.tag()
-    if seq is not None:
-        return seq.tag()
-    if mesh_plan is None:
-        return ""
-    m = mesh_plan.mesh
-    return (f"mesh{m.n_dp}x{m.n_shard}.{m.dp}.{m.shard}:"
-            f"{sorted((fi, p.shards) for fi, p in mesh_plan.plans.items())}"
-            "-")
-
-
-def _load_checkpoint(ck, mesh: Optional[mesh_mod.Mesh]):
-    """The checkpoint's data, or None; in a mesh run only when every rank
-    of the row holds the same unit count (mesh.agree_resume)."""
-    data = ck.load()
-    if mesh is not None and not mesh_mod.agree_resume(
-            mesh, data["units_done"] if data else 0):
-        return None
-    return data
 
 
 def _make_exchange(cfg: RealConfig, depth: int, dev: torch.device):
@@ -1153,17 +925,27 @@ def _make_exchange(cfg: RealConfig, depth: int, dev: torch.device):
     return multihost.BuildExchange(cfg.build_exchange_dir, topo, dev)
 
 
-def _add_rerun_phases(phase_s: Dict[str, float],
-                      sub: Dict[str, float]) -> None:
-    for k, v in sub.items():
-        phase_s[f"rerun.{k}"] = phase_s.get(f"rerun.{k}", 0.0) + v
-
-
-def _print_phases(cfg: RealConfig, phase_s: Dict[str, float]) -> None:
-    if cfg.verbose:
-        print("phase timers: " + " ".join(
-            f"{k}={v:.2f}s" for k, v in sorted(phase_s.items())),
-            file=sys.stderr)
+def _route(cfg: RealConfig, rs: reads_io.ReadSet, texts: List[TextFile],
+           dev: torch.device, mesh_plan: Optional[MeshPlan], patid_filter,
+           depth: int, survivor_cap: int, prog: _Progress):
+    """The run's route, its batch source (the `setup` phase) and its
+    devices: the rank mesh of mesh_plan, else an in-process mesh over
+    local_mesh_cells, else one device (under -exchange with a
+    BuildExchange)."""
+    mesh = _mesh_of(cfg, mesh_plan)
+    cells = local_mesh_cells(cfg, dev) if mesh is None else None
+    with prog.phase("setup"):
+        source = _make_source(cfg, rs, patid_filter, depth, dev, cells)
+    if mesh is not None:
+        route = mesh_plan
+    elif cells is not None:
+        route = _local_layout(cfg, texts, cells, source, rs.num_reads,
+                              survivor_cap)
+    else:
+        route = _seq_layout(cfg, texts, dev, source, survivor_cap,
+                            reads=rs.num_reads,
+                            exchange=_make_exchange(cfg, depth, dev))
+    return route, source, cells or [dev]
 
 
 # ---------------------------------------------------------------------------
@@ -1330,24 +1112,168 @@ class _HitFetch:
                            overflow=a[4 * h + 1:].astype(bool))
 
 
-class _HitAccumulator:
-    """Hit columns decoded step by step from the compacted prefixes,
-    sorted and deduped once at the end (matchAllImplementation.cpp:99-161
-    unifyMatches semantics)."""
+# steps whose hits may be on their way to the host at once (real_tpu keeps
+# the same depth of pending fetches)
+_PENDING_MAX = 8
 
-    def __init__(self) -> None:
+
+# ---------------------------------------------------------------------------
+# the job: one skeleton over a route, in one of two modes
+# ---------------------------------------------------------------------------
+
+_STATE_FIELDS = MatchState._fields
+
+
+class _UniqueMode:
+    """matchUnique's part of the job: each batch's per-read states and
+    overflow flags, in one chunk per dp row on the row's home device (one
+    chunk on the run's device for a run of one device, one per row of the
+    current text's mesh for an in-process mesh: begin_unit moves them when
+    a text's mesh has other rows), folded step by step and collected into
+    a MatchResult; a rerun's reads overwrite theirs."""
+    checkpoint, tag, caps = ckpt_mod.Checkpoint, "", "candidate"
+
+    def __init__(self, cfg: RealConfig, numpat: int):
+        # the result's host arrays are made before the setup's host
+        # buffers come and go: made after them, they leave the host
+        # allocator in another state, which moved a fly.u.4m job's drain
+        # by +10-40 ms and its rerun's collect by -10 ms (H100 runs)
+        self.cfg = cfg
+        self.result = MatchResult(
+            *(np.zeros(numpat, np.int32) for _ in range(5)),
+            np.full(numpat, -np.finfo(np.float32).max, np.float32))
+
+    def place(self, plans, home: torch.device) -> None:
+        """Every batch's initial state and overflow flags on `home`."""
+        self.plans, self.homes = plans, [home]
+        self.state = {bi: [initial_state(p.rows, home)]
+                      for bi, p in enumerate(plans)}
+        self.over = {bi: [torch.zeros(p.rows, dtype=torch.bool, device=home)]
+                     for bi, p in enumerate(plans)}
+
+    def _split(self, bi: int, full: MatchState, over: torch.Tensor) -> None:
+        n = len(self.homes)
+        r = self.plans[bi].rows // n
+        self.state[bi] = [MatchState(*(t[d * r:(d + 1) * r].to(h)
+                                       for t in full))
+                          for d, h in enumerate(self.homes)]
+        self.over[bi] = [over[d * r:(d + 1) * r].to(h)
+                         for d, h in enumerate(self.homes)]
+
+    def resume(self, data: dict) -> None:
+        """A checkpoint's whole-batch states and overflow flags."""
+        for bi in range(len(self.plans)):
+            self._split(bi, MatchState(**{
+                f: torch.from_numpy(data["states"][bi][f])
+                for f in _STATE_FIELDS}),
+                torch.from_numpy(data["overflow"][bi]))
+
+    def begin_unit(self, homes: List[torch.device]) -> None:
+        """Re-chunk every batch over the rows of `homes` (stream-ordered
+        copies between devices; nothing moves when the rows are the
+        same)."""
+        if list(homes) == self.homes:
+            return
+        h0 = homes[0]
+        full = {bi: (MatchState(*(torch.cat([c[i].to(h0) for c in chunks])
+                                  for i in range(len(_STATE_FIELDS)))),
+                     torch.cat([o.to(h0) for o in self.over[bi]]))
+                for bi, chunks in self.state.items()}
+        self.homes = list(homes)
+        for bi, (st, over) in full.items():
+            self._split(bi, st, over)
+
+    def _fetch(self, what: str) -> List[list]:
+        """Every batch's state fields and overflow flags as numpy arrays,
+        the rows concatenated; the queued device work completes inside
+        this fetch."""
+        with watchdog(self.cfg.watchdog_s, what):
+            return [[np.concatenate([c[i].cpu().numpy() for c in chunks])
+                     for i in range(len(_STATE_FIELDS))]
+                    + [np.concatenate([o.cpu().numpy()
+                                       for o in self.over[bi]])]
+                    for bi, chunks in self.state.items()]
+
+    def save(self, ck, units_done: int) -> None:
+        host = self._fetch("checkpoint state fetch")
+        ck.save(units_done, [dict(zip(_STATE_FIELDS, h[:-1])) for h in host],
+                [h[-1] for h in host])
+
+    def row(self, step, bi: int, d: int, patids, fi: int, eps, kw) -> None:
+        state, out = step(self.state[bi][d], fi, eps, **kw)
+        self.state[bi][d] = state
+        if isinstance(out, Survivors):        # one device: match_step's
+            # -debug 1: a NaN score on a valid lane raises at the step that
+            # made it (one device sync per step, like jax_debug_nans)
+            if self.cfg.debug_checks and self.cfg.scores and bool(
+                    (out.valid & torch.isnan(out.score)).any()):
+                raise FloatingPointError(
+                    f"NaN score on a valid lane in file {fi}, batch {bi}")
+            out = out.overflow
+        self.over[bi][d] |= out
+
+    def end_batch(self, n_rows: int) -> None:
+        pass
+
+    def finish(self, prog: _Progress):
+        """The result and the overflowing reads."""
+        # the match loop only dispatches; its device work completes here
+        with prog.phase("drain"):
+            host = self._fetch("matchUnique result drain")
+        result = self.result
+        overflow = np.zeros(len(result.st), bool)
+        with prog.phase("collect"):
+            for p, (*fields, over) in zip(self.plans, host):
+                n = len(p.patids)
+                for f, a in zip(_STATE_FIELDS, fields):
+                    getattr(result, f)[p.patids] = a[:n]
+                overflow[p.patids[over[:n]]] = True
+        return result, np.flatnonzero(overflow)
+
+    def rerun(self, result: MatchResult, over_ids: np.ndarray, *args, **kw):
+        sub = run_match_unique(*args, **kw)
+        for f in _STATE_FIELDS:
+            getattr(result, f)[over_ids] = getattr(sub, f)[over_ids]
+        return result, sub
+
+    def validate(self, result: MatchResult, texts) -> None:
+        validate_result(self.cfg, result, texts)
+
+
+class _AllMode:
+    """matchAll's part of the job: hit columns decoded step by step from the
+    compacted prefixes, sorted and deduped once at the end
+    (matchAllImplementation.cpp:99-161 unifyMatches semantics). Each
+    step's hits start for the host right after its dispatch (_HitFetch)
+    and are decoded once _PENDING_MAX newer steps of rows are queued, so
+    the copies overlap device work and device memory stays bounded. A
+    rerun's hits replace its reads' first-pass hits."""
+    checkpoint, tag, caps = ckpt_mod.AllCheckpoint, "all-", "matchAll"
+
+    def __init__(self, cfg: RealConfig, numpat: int):
+        self.cfg, self.numpat = cfg, numpat
+
+    def place(self, plans, home: torch.device) -> None:
+        self.overflow = np.zeros(self.numpat, bool)
+        self.pending: List[tuple] = []
         self.cols: List[Tuple[np.ndarray, ...]] = []
         # steps whose TOTAL hit count exceeded the device buffer H: the
         # whole batch is rerun (compact_hits)
         self.batch_overflow_steps = 0
 
+    def drain(self, to_len: int) -> None:
+        while len(self.pending) > to_len:
+            fetch, patids, fi = self.pending.pop(0)
+            self.add_compact(fetch.numpy(self.cfg.watchdog_s), patids, fi,
+                             len(patids))
+
     @spans.traced("allhits.decode")
     def add_compact(self, ch: CompactHits, patids: np.ndarray, fi: int,
-                    n: int, overflow_out: np.ndarray) -> None:
+                    n: int) -> None:
         """Decode one step's CompactHits (numpy) for its n real reads (a
         span `allhits.decode`; the rows decoded add to the job's counter
         `allhits.decoded`)."""
-        overflow_out[patids[ch.overflow[:n]]] = True
+        self.overflow[patids[ch.overflow[:n]]] = True
         h = len(ch.pos)
         self.batch_overflow_steps += int(ch.count > h)
         c = min(ch.count, h)
@@ -1368,8 +1294,7 @@ class _HitAccumulator:
 
     def compact(self) -> tuple:
         """The accumulated columns concatenated in place (no sort, no
-        dedup): the checkpoint's payload; the accumulator stays
-        equivalent."""
+        dedup): the checkpoint's payload; the state stays equivalent."""
         if not self.cols:
             return tuple(np.zeros(0, dt) for dt in HIT_DTYPES)
         cols = tuple(np.concatenate([c[i] for c in self.cols])
@@ -1377,19 +1302,165 @@ class _HitAccumulator:
         self.cols = [cols]
         return cols
 
-    def finalize(self, use_native: bool = True) -> tuple:
-        """Sorted + deduped hit columns (pid, k, pos, fileid, frag,
-        score, inv)."""
-        if not self.cols:
-            return tuple(np.zeros(0, dt) for dt in HIT_DTYPES)
-        return _sort_dedup_hits(tuple(
-            np.concatenate([c[i] for c in self.cols]) for i in range(7)),
-            use_native)
+    def resume(self, data: dict) -> None:
+        """Hits of completed units are independent of later units (shards
+        are disjoint window ranges)."""
+        self.overflow |= data["overflow"]
+        self.cols.append(data["cols"])
+
+    def save(self, ck, units_done: int) -> None:
+        self.drain(0)
+        ck.save(units_done, self.overflow, self.compact())
+
+    def begin_unit(self, homes) -> None:
+        pass
+
+    def row(self, step, bi: int, d: int, patids, fi: int, eps, kw) -> None:
+        _, ch = step(None, fi, eps, matchall=True, **kw)
+        if self.cfg.debug_checks and self.cfg.scores:
+            if bool(torch.isnan(ch.score[:int(ch.count)]).any()):
+                raise FloatingPointError(
+                    f"NaN score on a hit in file {fi}, batch {bi}")
+        self.pending.append((_HitFetch(ch), patids, fi))
+
+    def end_batch(self, n_rows: int) -> None:
+        self.drain(_PENDING_MAX * n_rows)
+
+    def finish(self, prog: _Progress):
+        with prog.phase("drain"):
+            self.drain(0)
+        with prog.phase("finalize"):       # sorted + deduped
+            cols = self.compact()
+            if self.cols:
+                cols = _sort_dedup_hits(cols, self.cfg.native_host)
+        return (MatchAllResult(*cols, metrics={
+            "batch_hit_overflow_steps": self.batch_overflow_steps}),
+            np.flatnonzero(self.overflow))
+
+    def rerun(self, result: MatchAllResult, over_ids: np.ndarray, *args,
+              **kw):
+        sub = run_match_all(*args, as_arrays=True, **kw)
+        keep = ~np.isin(result.pid, over_ids)
+        return MatchAllResult(*_sort_dedup_hits(tuple(
+            np.concatenate([a[keep], b])
+            for a, b in zip(result.cols, sub.cols)), self.cfg.native_host),
+            metrics=result.metrics), sub
+
+    def validate(self, result: MatchAllResult, texts) -> None:
+        validate_hits(self.cfg, result.cols)
 
 
-# steps whose hits may be on their way to the host at once (real_tpu keeps
-# the same depth of pending fetches)
-_PENDING_MAX = 8
+def _run(mode_cls, cfg: RealConfig, rs: reads_io.ReadSet,
+         texts: List[TextFile], device, patid_filter, cand_cap,
+         survivor_cap, mesh_plan, depth: int, index_cache):
+    """The job of a mode (_UniqueMode, _AllMode) on any route: setup and
+    the route (_route), the checkpoint's open and resume, the unit loop,
+    the drain, the result, the rerun of overflowing reads with 16x caps,
+    the phase timers, the checkpoint's delete, the -debug validation."""
+    dev = _check_run(cfg, texts, device)
+    index_cache = {} if index_cache is None else index_cache
+    cand_cap = cand_cap or cfg.cand_cap
+    survivor_cap = survivor_cap or cfg.survivor_cap
+    step_kw = _step_kwargs(cfg, cand_cap, survivor_cap)
+    mode = mode_cls(cfg, rs.num_reads)
+    prog = _Progress(cfg.verbose)
+    route, source, devices = _route(cfg, rs, texts, dev, mesh_plan,
+                                    patid_filter, depth, survivor_cap, prog)
+    mode.place(source.plans, devices[0])
+
+    # checkpoint/resume: the mode's state + completed-unit cursor; only
+    # the top-level pass checkpoints (escalation reruns are cheap
+    # re-derivations)
+    ck = None
+    skip_units = 0
+    unit_done = [0]
+    if cfg.checkpoint and depth == 0 and patid_filter is None:
+        ck = mode.checkpoint(
+            cfg.checkpoint, mode.tag + route.tag()
+            + ckpt_mod.fingerprint(cfg, texts, rs.num_reads,
+                                   len(source.plans), cand_cap,
+                                   survivor_cap))
+        data = ck.load()
+        if not route.agree_resume(data["units_done"] if data else 0):
+            data = None
+        if data:
+            skip_units = unit_done[0] = data["units_done"]
+            mode.resume(data)
+            prog.event(f"resumed from checkpoint: {skip_units} units done")
+
+    def checkpoint_unit():
+        unit_done[0] += 1
+        if ck is None or unit_done[0] % max(cfg.checkpoint_every, 1):
+            return
+        mode.save(ck, unit_done[0])
+        prog.event(f"checkpoint saved ({unit_done[0]} units)")
+
+    win = _DispatchWindow(cfg, devices, enabled=not source.resident)
+
+    def visit(u: _Unit, index, steps: int):
+        mode.begin_unit(u.homes or [dev])
+        kw = dict(step_kw, bsearch_steps=steps, text_has_n=u.text.has_n)
+        for bi, rows in enumerate(u.rows(source, index)):
+            eps = np.float32(cfg.filter_value(source.plans[bi].patl))
+            for d, (patids, step) in enumerate(rows):
+                mode.row(step, bi, d, patids, u.fi, eps, kw)
+            mode.end_batch(len(rows))
+            win.push()
+        checkpoint_unit()
+        return _record_events(u.devices or [dev])
+
+    account = _foreach_unit(cfg, route, texts, cand_cap, visit, prog,
+                            skip_units=skip_units, index_cache=index_cache)
+    result, over_ids = mode.finish(prog)
+    result.metrics = {"phase_s": dict(prog.phase_s),
+                      "overflow_rerun_reads": int(len(over_ids)),
+                      **result.metrics, **account,
+                      "source_resident": source.resident,
+                      "resident_read_bytes": source.resident_device_bytes,
+                      "streamed_batches": source.streamed_batches}
+    phase_s = result.metrics["phase_s"]
+    if len(over_ids):
+        if depth >= 4:
+            raise RuntimeError(
+                f"{len(over_ids)} reads overflow {mode.caps} caps even at "
+                f"cand_cap={cand_cap}")
+        print(f"rerunning {len(over_ids)} overflowing reads with "
+              f"cand_cap={cand_cap * 16}", file=sys.stderr)
+        result, sub = mode.rerun(
+            result, over_ids, cfg, rs, texts, device=dev,
+            patid_filter=over_ids, cand_cap=cand_cap * 16,
+            survivor_cap=survivor_cap * 16, mesh_plan=mesh_plan,
+            _depth=depth + 1, _index_cache=index_cache)
+        for k, v in sub.metrics["phase_s"].items():
+            phase_s[f"rerun.{k}"] = phase_s.get(f"rerun.{k}", 0.0) + v
+    if cfg.verbose:
+        print("phase timers: " + " ".join(
+            f"{k}={v:.2f}s" for k, v in sorted(phase_s.items())),
+            file=sys.stderr)
+    if ck is not None:
+        ck.delete()
+    if cfg.debug_checks and depth == 0:
+        mode.validate(result, texts)
+    return result
+
+
+@spans.traced("driver")
+def run_match_unique(cfg: RealConfig, rs: reads_io.ReadSet,
+                     texts: List[TextFile], device="cuda",
+                     patid_filter: Optional[np.ndarray] = None,
+                     cand_cap: Optional[int] = None,
+                     survivor_cap: Optional[int] = None,
+                     mesh_plan: Optional[MeshPlan] = None,
+                     _depth: int = 0,
+                     _index_cache: Optional[Dict] = None) -> MatchResult:
+    """matchUnique over all texts; `texts` must live on `device`. In a
+    rank mesh run (cfg.use_mesh) `rs` is this rank's row slice and
+    mesh_plan its layout (plan_mesh); an in-process mesh run
+    (local_mesh_cells) matches all of `rs` on its cells. The per-step
+    -debug scan is the one-device path's, a mesh run checks the finished
+    result."""
+    return _run(_UniqueMode, cfg, rs, texts, device, patid_filter, cand_cap,
+                survivor_cap, mesh_plan, _depth, _index_cache)
 
 
 @spans.traced("driver")
@@ -1409,162 +1480,11 @@ def run_match_all(cfg: RealConfig, rs: reads_io.ReadSet,
     same records as a MatchAllResult of columns with the run's metrics
     (no per-hit Python objects; cli.output.write_all_arrays prints it).
 
-    Each step's compacted hits start for the host right after the step is
-    dispatched and are decoded once _PENDING_MAX newer steps are queued, so
-    the copies overlap device work and device memory stays bounded. Reads
-    that overflow a cap, or whose batch overflows the hit buffer, are
-    rerun with 16x caps; their first-pass hits are dropped before the
-    rerun's are merged. A mesh run takes `rs` and `mesh_plan` as
-    run_match_unique does; every rank of a row holds the row's hits. An
-    in-process mesh decodes one CompactHits per dp row of each step, its
-    row ids local to the row (real_tpu's enqueue)."""
-    dev = _check_run(cfg, texts, device)
-    mesh = _mesh_of(cfg, mesh_plan)
-    cells = local_mesh_cells(cfg, dev) if mesh is None else None
-    if _index_cache is None:
-        _index_cache = {}
-    cand_cap = cand_cap or cfg.cand_cap
-    survivor_cap = survivor_cap or cfg.survivor_cap
-    kw = _step_kwargs(cfg, cand_cap, survivor_cap)
-
-    prog = _Progress(cfg.verbose)
-    with prog.phase("setup"):
-        source = _make_source(cfg, rs, patid_filter, _depth, dev, cells)
-    layout = None if cells is None else _local_layout(
-        cfg, texts, cells, source, rs.num_reads, survivor_cap)
-    exchange = seq = None
-    if mesh is None and layout is None:
-        exchange = _make_exchange(cfg, _depth, dev)
-        seq = _seq_layout(cfg, texts, dev, reads=rs.num_reads,
-                          extra_reserved=source.resident_device_bytes
-                          + _step_workspace_bytes(source.plans,
-                                                  survivor_cap),
-                          streaming=not source.resident, exchange=exchange)
-    overflow = np.zeros(rs.num_reads, bool)
-    acc = _HitAccumulator()
-    pending: List[tuple] = []
-
-    def drain(to_len: int) -> None:
-        while len(pending) > to_len:
-            fetch, patids, fi = pending.pop(0)
-            acc.add_compact(fetch.numpy(cfg.watchdog_s), patids, fi,
-                            len(patids), overflow)
-
-    # checkpoint/resume: accumulated hit columns + overflow + completed-
-    # unit cursor (hits of completed units are independent of later units
-    # — shards are disjoint window ranges)
-    ck = None
-    skip_units = 0
-    unit_done = [0]
-    if cfg.checkpoint and _depth == 0 and patid_filter is None:
-        ck = ckpt_mod.AllCheckpoint(
-            cfg.checkpoint, "all-" + _layout_tag(mesh_plan, layout, seq)
-            + ckpt_mod.fingerprint(cfg, texts, rs.num_reads,
-                                   len(source.plans), cand_cap,
-                                   survivor_cap))
-        data = _load_checkpoint(ck, mesh)
-        if data:
-            skip_units = unit_done[0] = data["units_done"]
-            overflow |= data["overflow"]
-            acc.cols.append(data["cols"])
-            prog.event(f"resumed from checkpoint: {skip_units} units done")
-
-    def checkpoint_unit():
-        unit_done[0] += 1
-        if ck is None or unit_done[0] % max(cfg.checkpoint_every, 1):
-            return
-        drain(0)
-        ck.save(unit_done[0], overflow, acc.compact())
-        prog.event(f"checkpoint saved ({unit_done[0]} units)")
-
-    win = _DispatchWindow(cfg, cells or [dev], enabled=not source.resident)
-
-    step = (match_step if mesh is None
-            else functools.partial(sharded_match_step, mesh=mesh))
-
-    def visit(fi, text, index, steps):
-        for bi, b in enumerate(source):
-            _, ch = step(
-                index.sig, index.pos, index.bb,
-                text.words, text.nbits, text.ncum, text.frag_offsets,
-                b.codes, b.quals, b.valid,
-                None, fi, np.float32(cfg.filter_value(b.patl)),
-                matchall=True, bsearch_steps=steps,
-                text_has_n=text.has_n, **kw)
-            check_hits(ch, fi, bi)
-            pending.append((_HitFetch(ch), b.patids, fi))
-            drain(_PENDING_MAX)
-            win.push()
-        checkpoint_unit()
-        return _record_events([dev])
-
-    def visit_local(fi, replicas, m, indexes, steps):
-        step_kw = dict(bsearch_steps=steps, matchall=True, **kw,
-                       text_has_n=next(iter(replicas.values())).has_n)
-        for bi, parts in enumerate(source.rows(m.layout())):
-            p = source.plans[bi]
-            eps = np.float32(cfg.filter_value(p.patl))
-            for d in range(m.n_dp):
-                _, ch = mesh_mod.local_row_step(
-                    m, d, indexes, replicas, parts[d], None, fi, eps,
-                    **step_kw)
-                check_hits(ch, fi, bi)
-                pending.append((_HitFetch(ch),
-                                pipeline.row_plan(p, m.n_dp, d).patids, fi))
-            drain(_PENDING_MAX * m.n_dp)
-            win.push()
-        checkpoint_unit()
-        return _record_events(m.devices)
-
-    def check_hits(ch, fi, bi):
-        if cfg.debug_checks and cfg.scores:
-            if bool(torch.isnan(ch.score[:int(ch.count)]).any()):
-                raise FloatingPointError(
-                    f"NaN score on a hit in file {fi}, batch {bi}")
-
-    if mesh is not None:
-        account = _foreach_shard_mesh(cfg, texts, cand_cap, visit, prog,
-                                      mesh_plan, skip_units=skip_units)
-    elif layout is not None:
-        account = _foreach_shard_local(cfg, texts, cand_cap, visit_local,
-                                       prog, layout, skip_units=skip_units,
-                                       reads=rs.num_reads)
-    else:
-        account = _foreach_shard_seq(
-            cfg, seq, cand_cap, visit, prog, skip_units=skip_units,
-            index_cache=_index_cache, reads=rs.num_reads, exchange=exchange)
-
-    with prog.phase("drain"):
-        drain(0)
-    with prog.phase("finalize"):
-        cols = acc.finalize(cfg.native_host)
-
-    over_ids = np.flatnonzero(overflow)
-    metrics = {"phase_s": dict(prog.phase_s),
-               "overflow_rerun_reads": int(len(over_ids)),
-               "batch_hit_overflow_steps": acc.batch_overflow_steps,
-               **_loop_metrics(account, source)}
-    if len(over_ids):
-        if _depth >= 4:
-            raise RuntimeError(
-                f"{len(over_ids)} reads overflow matchAll caps even at "
-                f"cand_cap={cand_cap}")
-        print(f"rerunning {len(over_ids)} overflowing reads with "
-              f"cand_cap={cand_cap * 16}", file=sys.stderr)
-        sub = run_match_all(
-            cfg, rs, texts, device=dev, patid_filter=over_ids,
-            cand_cap=cand_cap * 16, survivor_cap=survivor_cap * 16,
-            as_arrays=True, mesh_plan=mesh_plan, _depth=_depth + 1,
-            _index_cache=_index_cache)
-        keep = ~np.isin(cols[0], over_ids)
-        cols = _sort_dedup_hits(tuple(
-            np.concatenate([a[keep], b]) for a, b in zip(cols, sub.cols)),
-            cfg.native_host)
-        _add_rerun_phases(metrics["phase_s"], sub.metrics["phase_s"])
-    _print_phases(cfg, metrics["phase_s"])
-    if ck is not None:
-        ck.delete()
-    if cfg.debug_checks and _depth == 0:
-        validate_hits(cfg, cols)
-    result = MatchAllResult(*cols, metrics=metrics)
+    Reads that overflow a cap, or whose batch overflows the hit buffer,
+    are rerun with 16x caps (_AllMode). A mesh run takes `rs` and
+    `mesh_plan` as run_match_unique does; every rank of a row holds the
+    row's hits. An in-process mesh decodes one CompactHits per dp row of
+    each step, its row ids local to the row (real_tpu's enqueue)."""
+    result = _run(_AllMode, cfg, rs, texts, device, patid_filter, cand_cap,
+                  survivor_cap, mesh_plan, _depth, _index_cache)
     return result if as_arrays else result.by_read()

@@ -20,6 +20,7 @@ from real_tpu_torch.config import RealConfig
 from real_tpu_torch.engine import checkpoint as ckpt_mod
 from real_tpu_torch.engine import driver
 from real_tpu_torch.io import reads as reads_io
+from real_tpu_torch.parallel import mesh, multihost, plan
 from real_tpu_torch.utils.watchdog import watchdog
 from tests import ab_util
 
@@ -210,6 +211,69 @@ def _run_ranks(tmp_path, tag, flags, check=False):
         for p, text in zip(procs, texts):
             assert p.returncode == 0, text[-3000:]
     return texts
+
+
+# Each route's checkpoint key before the fingerprint: a changed key makes
+# the resume of a checkpoint written before the change start over
+# ("checkpoint fingerprint mismatch; ignoring it").
+ROUTE_TAGS = {
+    "one_device_two_shards": "seq:[(0, 2, False)]-",
+    "one_device_exchange": "seq:[(0, 3, False)]-",
+    "rank_mesh": "mesh2x2.1.0:[(0, 4)]-",
+    "in_process_cells": "local4:[(0, 2, 2, 2)]-",
+    "rank_in_process_cells": "rank1of2.local4:[(0, 2, 2, 2)]-",
+}
+
+
+class _Opened(Exception):
+    """Raised where a run opens its checkpoint, with the checkpoint's key."""
+
+
+@pytest.mark.parametrize("unique", [True, False], ids=["unique", "all"])
+@pytest.mark.parametrize("route", list(ROUTE_TAGS))
+def test_checkpoint_key_of_each_route(inputs, tmp_path, monkeypatch, route,
+                                      unique):
+    """The key each route and mode give the checkpoint: one device with two
+    shards, one device under -exchange (rank 1 of 2, rank 0's plan), a
+    rank of a 2 x 2 rank mesh, and an in-process mesh of four CPU cells,
+    alone and as rank 1 of 2."""
+    g, r, rs = inputs
+
+    def opened(self):
+        raise _Opened(self.fp)
+    monkeypatch.setattr(ckpt_mod, "fingerprint", lambda *a, **kw: "")
+    monkeypatch.setattr(ckpt_mod.Checkpoint, "load", opened)
+    monkeypatch.setattr(ckpt_mod.AllCheckpoint, "load", opened)
+    cfg = _cfg(g, r, str(tmp_path / "c.npz"), unique, index_shards=2)
+    texts = driver.load_texts(cfg, "cpu")
+
+    def rank1of2():
+        return multihost.HostTopology(1, 2)
+    mesh_plan = None
+    if route == "one_device_exchange":
+        cfg.index_shards = 3
+        cfg.build_exchange_dir = str(tmp_path / "x")
+        monkeypatch.setattr(multihost, "current_topology", rank1of2)
+        monkeypatch.setattr(multihost.BuildExchange, "agree",
+                            lambda self, p: p)
+    elif route == "rank_mesh":
+        cfg.use_mesh = True
+        mesh_plan = driver.MeshPlan(
+            mesh.Mesh(2, 2, 1, 0), 0, rs.num_reads, rs.num_reads,
+            {0: plan.StreamShardPlan(4, False, driver.BUCKET_BITS_CAP)}, 0)
+    elif route.endswith("cells"):
+        cfg.mesh_devices = ["cpu"] * 4
+        if route.startswith("rank"):
+            monkeypatch.setattr(multihost, "current_topology", rank1of2)
+    with pytest.raises(_Opened) as opened_with:
+        if unique:
+            driver.run_match_unique(cfg, rs, texts, "cpu",
+                                    mesh_plan=mesh_plan)
+        else:
+            driver.run_match_all(cfg, rs, texts, "cpu", as_arrays=True,
+                                 mesh_plan=mesh_plan)
+    assert str(opened_with.value) == ("" if unique else "all-") \
+        + ROUTE_TAGS[route]
 
 
 def test_checkpoint_every_two_units(inputs, tmp_path, monkeypatch):

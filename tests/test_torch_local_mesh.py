@@ -1,7 +1,7 @@
 """The in-process dp x shard mesh of the port (parallel/mesh.py LocalMesh,
-engine/driver.py local_mesh_cells / _foreach_shard_local, io/pipeline.py
-BatchSource.rows) held against real_tpu's mesh on the 8 virtual CPU
-devices that tests/conftest.py sets up, the port's cells being
+engine/driver.py local_mesh_cells / LocalLayout / _foreach_unit,
+io/pipeline.py BatchSource.rows) held against real_tpu's mesh on the 8
+virtual CPU devices that tests/conftest.py sets up, the port's cells being
 RealConfig.mesh_devices = ["cpu"] * n.
 
 * make_plans(row_align=n) and choose_mesh_shape equal real_tpu's.
@@ -132,6 +132,12 @@ def test_cells_that_share_a_card_share_its_budget(monkeypatch):
         lay = driver._local_layout(cfg, [tf], [torch.device(c) for c in cells],
                                    source, 0, 8)
         (fi, splan, m), = lay.texts
+        # the route's units: passes over every window, each bounded by
+        # the mesh's devices and folding on its rows' homes
+        units = lay.units(cfg, [tf])
+        assert all(u.devices == m.devices and u.homes
+                   == [m.home(d) for d in range(m.n_dp)] for u in units)
+        assert len(units) * m.n_shard * units[0].windows >= nw
         want = plan.plan_index_shards(
             nw, 0.5, reserved_bytes=lay.reserved_bytes // k,
             hbm_bytes=hbm[dev] // k, model=plan.NARROW)

@@ -272,7 +272,8 @@ BOUND_CASES = {
 def test_mesh_loop_bounds_equal_real_tpus(case, monkeypatch):
     """The windows each shard of each pass builds, and its bucket width,
     as real_tpu's _foreach_shard_mesh computes them (its build recorded
-    in place of running it) against the port's loop on every shard."""
+    in place of running it) against the port's unit loop over a MeshPlan
+    route on every shard."""
     n, shards, n_dev = BOUND_CASES[case]
     rng = np.random.default_rng(n)
     codes = rng.integers(0, 4, n).astype(np.uint8)
@@ -313,9 +314,8 @@ def test_mesh_loop_bounds_equal_real_tpus(case, monkeypatch):
             mesh.Mesh(n_dp, n_shard, 0, s), 0, 0, reads,
             {0: plan.StreamShardPlan(shards, False,
                                      driver.BUCKET_BITS_CAP)}, 0)
-        driver._foreach_shard_mesh(RealConfig(seedl=32), [tf], 8,
-                                   lambda *a: None, driver._Progress(False),
-                                   mp)
+        driver._foreach_unit(RealConfig(seedl=32), mp, [tf], 8,
+                             lambda *a: None, driver._Progress(False))
     for s in range(n_shard):
         assert got[s] == [(st + s * per, per, bb) for st, per, bb in want]
     nw = n - 32 + 1
