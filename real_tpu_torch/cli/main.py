@@ -48,15 +48,17 @@ after `output`. `stream_wait_s` is the seconds the match loop spent
 waiting for the streaming reads' producer (io/pipeline.py; 0 when the
 reads stay resident; `streamed_batches` counts the batches). `counters`
 holds every counter of the job (utils/spans.py `add`) as it was summed:
-`stream_wait_s` unrounded, and on the matchAll path `allhits.decoded`
-(hit rows decoded from the steps' compacted hits, every rerun depth)
-and `allhits.records` (records written). A matchAll job's `driver` spans
-hold `allhits.wait` (the host waiting for a step's hit copy),
-`allhits.decode` (decoding a step's hits) and `allhits.sort` (each sort
-and dedup of the hit columns). -trace
-records the whole job, from the read parse to the last record, with
-torch.profiler (CPU and CUDA activities on the card, the CPU alone under
--device cpu) and writes one Chrome trace into the directory; each span of
+`stream_wait_s` unrounded, `output.records` (records formatted),
+`output.score_slow` (scores the native formatter left to snprintf: those
+within 1e-3 of zero, from 1e9 on, inf, NaN), and on the matchAll path
+`allhits.decoded` (hit rows decoded from the steps' compacted hits, every
+rerun depth) and `allhits.records` (records written). A matchAll job's
+`driver` spans hold `allhits.wait` (the host waiting for a step's hit
+copy), `allhits.decode` (decoding a step's hits) and `allhits.sort` (each
+sort and dedup of the hit columns). -trace records the whole job, from
+the read parse to the last record, with torch.profiler (CPU and CUDA
+activities on the card, the CPU alone under -device cpu) and writes
+one Chrome trace into the directory; each span of
 the job's own thread is a `user_annotation` there. -exchange <dir> splits
 the index build between the ranks of a multi-process run
 (parallel/multihost.py, which also runs one rank of such a run); in a

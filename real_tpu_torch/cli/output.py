@@ -10,10 +10,11 @@ Scores are printed as C++ `ostream << float` (general format, 6 significant
 digits) == Python '%.6g' of the float32 value widened to double.
 
 Records are formatted by the native C++ formatter (native/readpack.cpp
-format_records) in bounded chunks through two formatter threads and a
-writer thread. The vectorized NumPy formatter, _format_records_plain, is
-its plain version: it serves use_native=False and read sets whose ids are a
-list of strings and not an IdView blob.
+format_records, which writes its numbers without printf, but for the
+scores it counts in `output.score_slow`) in bounded chunks through two
+formatter threads and a writer thread. The vectorized NumPy formatter,
+_format_records_plain, is its plain version: it serves use_native=False
+and read sets whose ids are a list of strings and not an IdView blob.
 """
 
 from __future__ import annotations
@@ -115,7 +116,9 @@ def _format_records_native(rs: ReadSet, pids, inv, fileid, frag, pos, errs,
                            scores: bool) -> bytes:
     """Record lines from the C++ formatter; rs.ids must be an IdView. The
     f64 scores of the engine are narrowed to float32 here, where
-    _score_col narrows them for the plain version."""
+    _score_col narrows them for the plain version. The scores that the
+    formatter left to snprintf add to the job's counter
+    `output.score_slow` (a formatter thread's span carries the job)."""
     lib = native.get_lib()
     ids = rs.ids
     blob, name_off, file_base, frag_start = _global_frag_tables(texts)
@@ -144,6 +147,7 @@ def _format_records_native(rs: ReadSet, pids, inv, fileid, frag, pos, errs,
                                    p(code_off, i64), p(ni, i64),
                                    p(name_off, i64))
     out = np.empty(int(cap), np.uint8)
+    slow = i64()
     written = lib.format_records(
         n, p(id_blob, ctypes.c_uint8), p(id_off, i64),
         p(codes, ctypes.c_uint8), p(code_off, i64), p(pid64, i64),
@@ -151,10 +155,12 @@ def _format_records_native(rs: ReadSet, pids, inv, fileid, frag, pos, errs,
         p(sc, ctypes.c_float) if scores
         else ctypes.POINTER(ctypes.c_float)(),
         p(blob, ctypes.c_uint8), p(name_off, i64), p(ni, i64), p(lp, i64),
-        p(errs32, ctypes.c_int32), p(out, ctypes.c_uint8), out.size)
+        p(errs32, ctypes.c_int32), p(out, ctypes.c_uint8), out.size,
+        ctypes.byref(slow))
     if written < 0:
         raise RuntimeError("format_records overran the buffer sized by "
                            "format_records_bound")
+    spans.add("output.score_slow", slow.value)
     return out[:written].tobytes()
 
 
@@ -275,8 +281,10 @@ def write_unique(out: IO, rs: ReadSet, result: MatchResult,
                  texts: List[TextFile], scores: bool,
                  use_native: bool = True) -> int:
     """Final output pass in read order, in bounded chunks of records;
-    returns the unique-hit count (printed as 'unique: N' by the CLI)."""
+    returns the unique-hit count (printed as 'unique: N' by the CLI),
+    which adds to the job's counter `output.records`."""
     pids = np.flatnonzero((result.st == STRAIGHT) | (result.st == REVERSE))
+    spans.add("output.records", pids.size)
 
     def make_blob(s, e):
         p = pids[s:e]
@@ -298,9 +306,11 @@ def write_all_arrays(out: IO, rs: ReadSet, cols, texts: List[TextFile],
     The reference's order is thread-interleaved and nondeterministic
     (matchAllImplementation.cpp:467-533); this prints read-major, the hits
     of a read in unified (sorted) order, as real_tpu does. Returns the
-    record count, which adds to the job's counter `allhits.records`."""
+    record count, which adds to the job's counters `allhits.records` and
+    `output.records`."""
     pid, k, pos, fid, frag, score, inv = cols
     spans.add("allhits.records", len(pid))
+    spans.add("output.records", len(pid))
 
     def make_blob(s, e):
         return _format_records(

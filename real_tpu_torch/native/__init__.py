@@ -81,7 +81,7 @@ def load_library(path: Path) -> ctypes.CDLL:
     """ctypes handle of a built readpack library with every entry's
     argument and result types declared."""
     lib = ctypes.CDLL(str(path))
-    i64, i32 = ctypes.c_int64, ctypes.c_int32
+    i64, i32, u64 = ctypes.c_int64, ctypes.c_int32, ctypes.c_uint64
     i64p = ctypes.POINTER(ctypes.c_int64)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i8p = ctypes.POINTER(ctypes.c_int8)
@@ -100,7 +100,10 @@ def load_library(path: Path) -> ctypes.CDLL:
         "pack_rows_2bit": ([u8p, i64, i64, u32p, i64], None),
         "format_records_bound": ([i64, i64p, i64p, i64p, i64p, i64p], i64),
         "format_records": ([i64, u8p, i64p, u8p, i64p, i64p, u8p, f32p, u8p,
-                            i64p, i64p, i64p, i32p, u8p, i64], i64),
+                            i64p, i64p, i64p, i32p, u8p, i64, i64p], i64),
+        "format_int": ([i64, u8p], i64),
+        "format_scores": ([i64, f32p, u8p, i64p], i64),
+        "format_score_check": ([u64, u64, u64, i64p], i64),
         "radix_argsort3": ([i64, u64p, u64p, u64p, i64p], None),
     }
     for name, (argtypes, restype) in sigs.items():

@@ -11,6 +11,7 @@
 // builds it with the host compiler at first use). Each entry has a plain
 // NumPy version in the package, and the two agree exactly.
 
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -241,6 +242,159 @@ void genome_fill(const uint8_t* buf, int64_t n,
     }
 }
 
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The record formatter's numbers, written without printf on the common
+// path: "%lld" of an integer by two digits a lookup, and "%.6g" of a
+// float32 widened to double in 64-bit integer arithmetic, exact for 0 and
+// 1e-3 <= |f| < 1e9 (every score of a 50-150 bp read but those within
+// 1e-3 of zero); snprintf writes the rest and is counted.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct DigitPairs {
+    char t[200];                // "00" "01" ... "99"
+    DigitPairs() {
+        for (int i = 0; i < 100; ++i) {
+            t[2 * i] = char('0' + i / 10);
+            t[2 * i + 1] = char('0' + i % 10);
+        }
+    }
+};
+const DigitPairs PAIRS;
+
+const uint64_t POW10[10] = {1ull, 10ull, 100ull, 1000ull, 10000ull,
+                            100000ull, 1000000ull, 10000000ull,
+                            100000000ull, 1000000000ull};
+
+// "%llu" of v; returns the bytes written (at most 20).
+inline int write_u64(char* w, uint64_t v) {
+    char buf[20];
+    char* p = buf + 20;
+    while (v >= 100) {
+        uint64_t q = v / 100;
+        p -= 2;
+        memcpy(p, PAIRS.t + 2 * (v - q * 100), 2);
+        v = q;
+    }
+    if (v >= 10) {
+        p -= 2;
+        memcpy(p, PAIRS.t + 2 * v, 2);
+    } else {
+        *--p = char('0' + v);
+    }
+    int n = int(buf + 20 - p);
+    memcpy(w, p, n);
+    return n;
+}
+
+// "%lld" of v, INT64_MIN included.
+inline int write_i64(char* w, int64_t v) {
+    if (v < 0) {
+        *w = '-';
+        return 1 + write_u64(w + 1, 0 - uint64_t(v));
+    }
+    return write_u64(w, uint64_t(v));
+}
+
+// "%.6g" of f widened to double for 0 and 1e-3 <= |f| < 1e9; -1 (nothing
+// written) for every other value. |f| = m * 2^e with m < 2^24; q, the
+// six significant digits, is |f| * 10^(5 - x) rounded half to even, found
+// with one divide (a shift when the divisor is a power of two): m * 10^k
+// < 2^54 and the divisor is at most 2^34 or 2^4 * 10^4. x, the decimal
+// exponent, lies in [-3, 9], so %g's e style (x < -4 or x >= 6) is
+// always e+0x.
+inline int write_score_fast(char* w, float f) {
+    double a = std::fabs(double(f));
+    if (a != 0.0 && !(a >= 1e-3 && a < 1e9)) return -1;  // NaN too
+    uint32_t bits;
+    memcpy(&bits, &f, sizeof(bits));
+    char* s = w;
+    if (bits >> 31) *w++ = '-';
+    if (a == 0.0) {
+        *w++ = '0';
+        return int(w - s);
+    }
+    uint64_t m = (bits & 0x7FFFFFu) | 0x800000u;  // no subnormal is in range
+    int e = int((bits >> 23) & 0xFF) - 150;
+    int x = ((e + 23) * 1233) >> 12;   // floor(log10 2^(e+23)): X or X - 1
+    uint64_t q, r, den;
+    for (;;) {
+        int k = 5 - x;
+        uint64_t num = m;
+        int sh = 0;
+        if (e >= 0) num <<= e; else sh = -e;
+        if (k >= 0) {
+            num *= POW10[k];
+            q = num >> sh;
+            den = 1ull << sh;
+            r = num - (q << sh);
+        } else {
+            den = POW10[-k] << sh;
+            q = num / den;
+            r = num - q * den;
+        }
+        if (q >= 1000000) ++x;
+        else if (q < 100000) --x;
+        else break;
+    }
+    if (2 * r > den || (2 * r == den && (q & 1))) ++q;
+    if (q == 1000000) {
+        q = 100000;
+        ++x;
+    }
+    while (q % 10 == 0) q /= 10;       // %g drops trailing zeros
+    char dg[8];
+    int nd = write_u64(dg, q);
+    if (x >= 6) {                      // d.ddddde+0x: -3 <= x <= 9 here
+        *w++ = dg[0];
+        if (nd > 1) {
+            *w++ = '.';
+            memcpy(w, dg + 1, nd - 1);
+            w += nd - 1;
+        }
+        memcpy(w, "e+0", 3);
+        w += 3;
+        *w++ = char('0' + x);
+    } else if (x >= 0) {               // x + 1 digits before the point
+        int ip = x + 1;
+        if (nd <= ip) {
+            memcpy(w, dg, nd);
+            memset(w + nd, '0', ip - nd);
+            w += ip;
+        } else {
+            memcpy(w, dg, ip);
+            w += ip;
+            *w++ = '.';
+            memcpy(w, dg + ip, nd - ip);
+            w += nd - ip;
+        }
+    } else {                           // 0.000ddd
+        *w++ = '0';
+        *w++ = '.';
+        memset(w, '0', -x - 1);
+        w += -x - 1;
+        memcpy(w, dg, nd);
+        w += nd;
+    }
+    return int(w - s);
+}
+
+// "%.6g" of f widened to double: the integer path, else snprintf, counted
+// in *slow.
+inline int write_score(char* w, float f, int64_t* slow) {
+    int n = write_score_fast(w, f);
+    if (n >= 0) return n;
+    ++*slow;
+    return snprintf(w, 32, "%.6g", (double)f);
+}
+
+}  // namespace
+
+extern "C" {
+
 // ---------------------------------------------------------------------------
 // Output record formatting (matchUniqueImplementation.cpp:265-291 layout):
 //   read_id \t seq[matched orientation] \t [score] \t 1 \t a \t patl \t
@@ -248,7 +402,8 @@ void genome_fill(const uint8_t* buf, int64_t n,
 // The score column is C++ `ostream << float` = "%.6g" of the float32
 // widened to double. Returns bytes written, or -1 if out_cap would be
 // exceeded (caller sizes out with format_records_bound, so this is a
-// programming error, not a runtime path).
+// programming error, not a runtime path). *score_slow is set to the
+// number of scores that snprintf wrote.
 // ---------------------------------------------------------------------------
 
 int64_t format_records_bound(int64_t n, const int64_t* pid,
@@ -277,11 +432,13 @@ int64_t format_records(
         const int64_t* name_idx,     // [n] global fragment-name index
         const int64_t* local_pos,    // [n] 1-based position in fragment
         const int32_t* errs,         // [n]
-        uint8_t* out, int64_t out_cap) {
+        uint8_t* out, int64_t out_cap,
+        int64_t* score_slow) {
     static const char FWD[5] = {'A', 'C', 'G', 'T', 'N'};
     static const char REV[5] = {'T', 'G', 'C', 'A', 'N'};
     uint8_t* w = out;
     uint8_t* lim = out + out_cap;
+    *score_slow = 0;
     for (int64_t i = 0; i < n; ++i) {
         int64_t p = pid[i];
         int64_t idl = id_off[p + 1] - id_off[p];
@@ -300,26 +457,65 @@ int64_t format_records(
         }
         *w++ = '\t';
         if (score) {
-            w += snprintf((char*)w, 32, "%.6g", (double)score[i]);
+            w += write_score((char*)w, score[i], score_slow);
             *w++ = '\t';
         } else {
             *w++ = '\t';  // empty score column
         }
         *w++ = '1'; *w++ = '\t'; *w++ = 'a'; *w++ = '\t';
-        w += snprintf((char*)w, 24, "%lld", (long long)sl);
+        w += write_i64((char*)w, sl);
         *w++ = '\t';
         *w++ = inv[i] ? '-' : '+';
         *w++ = '\t';
         memcpy(w, name_blob + name_off[nmi], nml);
         w += nml;
         *w++ = '\t';
-        w += snprintf((char*)w, 24, "%lld", (long long)local_pos[i]);
+        w += write_i64((char*)w, local_pos[i]);
         *w++ = '\t';
         *w++ = '\t';  // empty type column
-        w += snprintf((char*)w, 16, "%d", errs[i]);
+        w += write_i64((char*)w, errs[i]);
         *w++ = '\n';
     }
     return w - out;
+}
+
+// Checks of the number writers. format_int: "%lld" of v. format_scores:
+// each score's "%.6g" and a newline, *score_slow as format_records sets
+// it (out holds 32 bytes a score). format_score_check: every float32 bit
+// pattern lo, lo + stride, ... below hi whose score takes the integer
+// path, against snprintf's bytes; returns the patterns that differ and
+// sets *checked to the patterns compared.
+int64_t format_int(int64_t v, uint8_t* out) {
+    return write_i64((char*)out, v);
+}
+
+int64_t format_scores(int64_t n, const float* score, uint8_t* out,
+                      int64_t* score_slow) {
+    uint8_t* w = out;
+    *score_slow = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        w += write_score((char*)w, score[i], score_slow);
+        *w++ = '\n';
+    }
+    return w - out;
+}
+
+int64_t format_score_check(uint64_t lo, uint64_t hi, uint64_t stride,
+                           int64_t* checked) {
+    int64_t bad = 0, seen = 0;
+    for (uint64_t b = lo; b < hi; b += stride) {
+        uint32_t bits = uint32_t(b);
+        float f;
+        memcpy(&f, &bits, sizeof(f));
+        char fast[32], slow[32];
+        int n = write_score_fast(fast, f);
+        if (n < 0) continue;
+        ++seen;
+        int m = snprintf(slow, sizeof(slow), "%.6g", (double)f);
+        bad += n != m || memcmp(fast, slow, n) != 0;
+    }
+    *checked = seen;
+    return bad;
 }
 
 }  // extern "C"

@@ -4,10 +4,14 @@ port's own plain NumPy versions.
 
 For every entry the same bytes go through real_tpu's native function, the
 port's native function and the port's plain version, and all arrays (or
-record bytes) must be equal: exact, no tolerance. A library that does not
-build must raise and never step down to the NumPy versions."""
+record bytes) must be equal: exact, no tolerance. The port's own number
+writers (the formatter's "%lld" and "%.6g" without printf) are held against
+Python's formatting and snprintf. A library that does not build must raise
+and never step down to the NumPy versions."""
 
+import ctypes
 import io
+import json
 import threading
 import types
 
@@ -22,13 +26,15 @@ from real_tpu.io import native_io as j_native_io
 from real_tpu.io import pipeline as j_pipeline
 from real_tpu.io import reads as j_reads
 from real_tpu_torch import bitpack, native
+from real_tpu_torch.cli import main as t_main
 from real_tpu_torch.cli import output as t_output
 from real_tpu_torch.engine import driver as t_driver
 from real_tpu_torch.io import fasta as t_fasta
 from real_tpu_torch.io import native_io as t_native_io
 from real_tpu_torch.io import pipeline as t_pipeline
 from real_tpu_torch.io import reads as t_reads
-from real_tpu_torch.tools import simulate
+from real_tpu_torch.tools import scorecheck, simulate
+from real_tpu_torch.utils import spans
 
 
 def _buf(text) -> np.ndarray:
@@ -529,24 +535,249 @@ def test_writers_native_equals_plain_across_chunks(tmp_path, monkeypatch,
 
 
 # ---------------------------------------------------------------------------
+# the formatter's number writers: "%lld" and the score's "%.6g"
+# ---------------------------------------------------------------------------
+
+def _u8p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _format_int(v):
+    out = np.zeros(32, np.uint8)
+    n = native.get_lib().format_int(v, _u8p(out))
+    return out[:n].tobytes()
+
+
+def _snprintf_lld(v):
+    out = ctypes.create_string_buffer(32)
+    n = ctypes.CDLL(None).snprintf(out, 32, b"%lld", ctypes.c_longlong(v))
+    return out.raw[:n]
+
+
+INT_CASES = {f"1e{j}": [10**j - 1, 10**j, 10**j + 1] for j in range(19)}
+INT_CASES.update({
+    "2^31": [2**31 - 1, 2**31, 2**31 + 1],
+    "int64_ends": [2**63 - 1, 2**63 - 2, -2**63, -2**63 + 1],
+    "small_and_negative": [0, 1, 5, -1, -10, -99, -100, -2**31],
+})
+
+
+@pytest.mark.parametrize("case", list(INT_CASES))
+def test_integer_writer_is_printf_lld(case):
+    for v in INT_CASES[case]:
+        assert _format_int(v) == b"%d" % v == _snprintf_lld(v), v
+
+
+def _format_scores(values):
+    """The native writer's bytes of each float32 score, and its slow
+    count."""
+    f = np.ascontiguousarray(values, np.float32)
+    out = np.zeros(32 * len(f) + 1, np.uint8)
+    slow = ctypes.c_int64(-1)
+    n = native.get_lib().format_scores(
+        len(f), f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), _u8p(out),
+        ctypes.byref(slow))
+    return out[:n].tobytes().split(b"\n")[:-1], slow.value
+
+
+def _pct6g(values):
+    return [("%.6g" % float(v)).encode()
+            for v in np.asarray(values, np.float32)]
+
+
+def _fast(values):
+    """Whether each float32 takes the integer path: 0 and 1e-3 <= |f| <
+    1e9."""
+    a = np.abs(np.asarray(values, np.float32).astype(np.float64))
+    return (a == 0) | ((a >= 1e-3) & (a < 1e9))
+
+
+# the fast range's float32 bit patterns, positive: 1e-3 rounds up in
+# float32, 1e9 is exact and out of range
+FAST_LO, FAST_HI = 0x3A83126F, 0x4E6E6B28
+
+
+def _seeded_scores(kind, seed, n=100_000):
+    rng = np.random.default_rng(seed)
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    if kind == "bits":          # every binade of the range alike
+        bits = rng.integers(FAST_LO, FAST_HI, n).astype(np.uint32)
+        return bits.view(np.float32) * sign.astype(np.float32)
+    if kind == "scores":        # a 50-150 bp read's score range
+        return rng.uniform(-1479.0, 343.0, n)
+    if kind == "decimals":      # short decimals, near 6-digit ties
+        return (rng.integers(1, 10**7, n) / 10.0 ** rng.integers(0, 9, n)
+                * sign)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,seed", [("bits", 1), ("bits", 2),
+                                       ("scores", 3), ("decimals", 4)])
+def test_score_writer_is_python_pct6g_on_seeded_values(kind, seed):
+    v = _seeded_scores(kind, seed)
+    v = v[_fast(v)]
+    assert len(v) > 80_000
+    got, slow = _format_scores(v)
+    assert slow == 0
+    assert got == _pct6g(v)
+
+
+def _ulps(x):
+    x = np.float32(x)
+    return [np.nextafter(x, np.float32(-np.inf)), x,
+            np.nextafter(x, np.float32(np.inf))]
+
+
+# values whose digits past the sixth are an exact half (float32-exact)
+EXACT_HALVES = [100000.5, 100001.5, 123456.5, 123457.5, 999998.5,
+                1234565.0, 1234575.0, 9999985.0, 9999995.0, 12345650.0,
+                12345750.0]
+
+SCORE_EDGES = {
+    **{f"1e{j}": _ulps(10.0 ** j) for j in range(-3, 10)},
+    "exact_halves": EXACT_HALVES + [-h for h in EXACT_HALVES],
+    "carry_to_1e6": [999999.5, 999999.0, 999999.4375, 999999.5625,
+                     *_ulps(999999.5), 99999.95, 99999.949, 9999.995,
+                     9.999995, 0.999999, 0.9999995, 0.00999999,
+                     0.009999995, 99999950.0, 999999500.0, -999999.5],
+    "zeros": [0.0, -0.0],
+}
+
+
+@pytest.mark.parametrize("case", list(SCORE_EDGES))
+def test_score_writer_is_python_pct6g_at_the_edges(case):
+    v = np.array(SCORE_EDGES[case], np.float32)
+    if case == "exact_halves":
+        assert (v.astype(np.float64) == np.array(SCORE_EDGES[case])).all()
+    got, slow = _format_scores(v)
+    assert got == _pct6g(v)
+    assert slow == int((~_fast(v)).sum())
+    if case == "zeros":
+        assert got == [b"0", b"-0"]
+
+
+SLOW_SCORES = {"9.99e-4": 9.99e-4, "1e9": 1e9, "3.4e38": 3.4e38,
+               "smallest_subnormal": float(np.uint32(1).view(np.float32)),
+               "inf": np.inf, "-inf": -np.inf, "nan": np.nan}
+
+
+@pytest.mark.parametrize("case", list(SLOW_SCORES))
+def test_slow_path_scores_are_right_and_counted_once(tmp_path, case):
+    v = np.float32(SLOW_SCORES[case])
+    assert not _fast([v])[0]
+    got, slow = _format_scores([v])
+    assert got == _pct6g([v]) and slow == 1
+    # through a record: the job's counter output.score_slow counts it once
+    path = str(tmp_path / "r.fa")
+    with open(path, "w") as f:
+        f.write(">r0\nACGTACGTACGTACGTAC\n")
+    rs = t_reads.parse_reads(path)
+    one = [np.zeros(1, np.int64), np.zeros(1, bool), np.zeros(1, np.int64),
+           np.zeros(1, np.int64), np.full(1, 5, np.int32),
+           np.ones(1, np.int32), np.full(1, v, np.float32)]
+    rec = spans.Recorder()
+    with rec.job():
+        line = t_output._format_records_native(rs, *one, _texts(), True)
+    assert rec.counters["output.score_slow"] == 1
+    assert line.split(b"\t")[2] == got[0]
+    assert line == t_output._format_records_plain(rs, *one, _texts(), True)
+
+
+@pytest.mark.parametrize("case", ["strided", "low_edge", "high_edge",
+                                  "negative_edges"])
+def test_score_check_agrees_with_snprintf(case):
+    """tools/scorecheck.py's native check: the integer path against
+    snprintf on a strided slice of every float32 pattern (the tool runs
+    them all), and pattern by pattern across the range's ends, where it
+    compares exactly the patterns inside."""
+    if case == "strided":
+        bad, seen = scorecheck.check(stride=1021, threads=4)
+        mag = np.arange(0, 1 << 32, 1021, dtype=np.uint64) & 0x7FFFFFFF
+        want = ((mag == 0) | ((mag >= FAST_LO) & (mag < FAST_HI))).sum()
+        assert bad == 0 and seen == want > 600_000
+        return
+    sign = 0x80000000 if case == "negative_edges" else 0
+    edges = {"low_edge": [FAST_LO], "high_edge": [FAST_HI],
+             "negative_edges": [FAST_LO, FAST_HI]}[case]
+    for edge in edges:
+        lo = sign | (edge - 500)
+        bad, seen = scorecheck.check(stride=1, threads=2, lo=lo,
+                                     hi=lo + 1000)
+        assert bad == 0 and seen == 500
+
+
+@pytest.mark.parametrize("flags", [[], ["-u", "0"]], ids=["unique", "all"])
+def test_cli_counts_the_records_and_no_slow_score(tmp_path, flags):
+    """A CLI job's -metrics counters: output.records is the lines printed
+    and output.score_slow 0 (scores on); -native 0 prints the same bytes
+    and counts the same records."""
+    genome, reads = str(tmp_path / "g.fa"), str(tmp_path / "r.fq")
+    with open(genome, "w") as f:
+        f.write(simulate.random_genome(20000, seed=61))
+    codes, _ = t_fasta.parse_genome(genome)
+    simulate.write_reads(simulate.generate_reads(codes, 300, 75, 0.02, True,
+                                                 seed=62), reads, True)
+    runs = []
+    for native_flag in ("1", "0"):
+        out, m = tmp_path / f"o{native_flag}.txt", tmp_path / "m.json"
+        assert t_main.main(["-device", "cpu", "-t", genome, "-p", reads,
+                            "-o", str(out), "-q", "1", "-e", "3", "-R", "0",
+                            "-native", native_flag, "-metrics", str(m),
+                            *flags]) == 0
+        runs.append((out.read_bytes(), json.loads(m.read_text())))
+    (got, m), (plain, m0) = runs
+    lines = got.count(b"\n")
+    assert lines > 250 and got == plain
+    assert m["counters"]["output.records"] == lines
+    assert m["counters"]["output.score_slow"] == 0
+    assert m0["counters"]["output.records"] == lines
+    scores = [ln.split(b"\t")[2] for ln in got.splitlines()]
+    assert all(s and s != b"0" for s in scores)
+
+
+# ---------------------------------------------------------------------------
 # a build or load failure raises
 # ---------------------------------------------------------------------------
 
-def test_source_is_the_ports_own_copy():
-    """The same code as real_tpu's readpack.cpp (comments aside), kept in
-    the port's package; no built library is committed beside it."""
-    import os
+def _definitions(path):
+    """A C++ source's top-level definitions and declarations, comments
+    and the namespace and extern "C" wrappers aside: {first line: code
+    lines}."""
     import re
+    text = re.sub(r"//[^\n]*", "", open(path).read())
+    defs, cur, depth = {}, [], 0
+    for ln in (ln.strip() for ln in text.splitlines()):
+        if not ln or (depth == 0 and ln in ("namespace {", 'extern "C" {',
+                                            "}")):
+            continue
+        cur.append(ln)
+        depth += ln.count("{") - ln.count("}")
+        if depth == 0 and (ln.startswith("#") or ln.endswith(("}", ";"))):
+            defs[cur[0]] = cur
+            cur = []
+    assert depth == 0 and not cur
+    return defs
 
-    def code(path):
-        text = open(path).read()
-        text = re.sub(r"//[^\n]*", "", text)
-        return [ln.strip() for ln in text.splitlines() if ln.strip()]
+
+def test_source_is_the_ports_own_copy():
+    """real_tpu's readpack.cpp, kept in the port's package, with the
+    record formatter's numbers written without printf: every other
+    definition is real_tpu's code (comments aside); no built library is
+    committed beside it."""
+    import os
 
     assert native.SRC.name == "readpack.cpp"
     assert "real_tpu_torch" in str(native.SRC)
-    theirs = os.path.join(os.path.dirname(j_native.__file__), "readpack.cpp")
-    assert code(str(native.SRC)) == code(theirs)
+    theirs = _definitions(os.path.join(os.path.dirname(j_native.__file__),
+                                       "readpack.cpp"))
+    ours = _definitions(str(native.SRC))
+    changed = {"int64_t format_records("}
+    assert changed <= set(theirs) and set(theirs) <= set(ours)
+    for head, code in theirs.items():
+        if head not in changed:
+            assert ours[head] == code, head
+    assert len(theirs) > 20 and {"int64_t format_int(int64_t v, uint8_t* "
+                                 "out) {"} <= set(ours)
     tracked = [f for f in os.listdir(native.SRC.parent) if f.endswith(".so")]
     assert tracked == []
 
