@@ -39,7 +39,8 @@ runs from after the argument parse to before the metrics write; under it
 `parse.reads` (the read file's parse or store load), `genome.load` (with
 `genome.parse`, `genome.pack` and `genome.upload` for each text), `driver`
 (each match call; an overflow rerun's nested in its caller's) with `plan`
-(the shard planner and its memory query) and the phases of `phase_s`, and
+(the shard planner and its memory query), the phases of `phase_s` and
+`index.unit_wait` (the host waiting for an index unit in flight), and
 `output` (the records) with an `output.format` for each chunk formatted
 and an `output.write` for each chunk written, on the formatter and writer
 threads. A phase_s entry is the sum of its phase's spans (`rerun.` for
@@ -48,14 +49,20 @@ after `output`. `stream_wait_s` is the seconds the match loop spent
 waiting for the streaming reads' producer (io/pipeline.py; 0 when the
 reads stay resident; `streamed_batches` counts the batches). `counters`
 holds every counter of the job (utils/spans.py `add`) as it was summed:
-`stream_wait_s` unrounded, `output.records` (records formatted),
-`output.score_slow` (scores the native formatter left to snprintf: those
-within 1e-3 of zero, from 1e9 on, inf, NaN), and on the matchAll path
-`allhits.decoded` (hit rows decoded from the steps' compacted hits, every
-rerun depth) and `allhits.records` (records written). A matchAll job's
-`driver` spans hold `allhits.wait` (the host waiting for a step's hit
-copy), `allhits.decode` (decoding a step's hits) and `allhits.sort` (each
-sort and dedup of the hit columns). -trace records the whole job, from
+`stream_wait_s` unrounded, `index.units_built` and `index.windows_built`
+(index units built at every depth and their windows; a unit taken from
+the single-unit cache or an exchange is not built),
+`index.build_device_s` and `rerun.index.build_device_s` (the seconds the
+first pass's builds and the reruns' builds occupied the card, between
+events on its stream; on the CPU their host time), `output.records`
+(records formatted), `output.score_slow` (scores the native formatter
+left to snprintf: those within 1e-3 of zero, from 1e9 on, inf, NaN), and
+on the matchAll path `allhits.decoded` (hit rows decoded from the steps'
+compacted hits, every rerun depth) and `allhits.records` (records
+written). A matchAll job's `driver` spans hold `allhits.wait` (the host
+waiting for a step's hit copy), `allhits.decode` (decoding a step's hits)
+and `allhits.sort` (each sort and dedup of the hit columns). -trace
+records the whole job, from
 the read parse to the last record, with torch.profiler (CPU and CUDA
 activities on the card, the CPU alone under -device cpu) and writes
 one Chrome trace into the directory; each span of

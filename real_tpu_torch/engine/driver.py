@@ -403,6 +403,50 @@ class _Unit:
     homes: Optional[List[torch.device]] = None
 
 
+class _BuildClock:
+    """The seconds the index builds of one depth occupy their devices: a
+    timing event before and after each build on the current stream of
+    each of its CUDA devices, read after the depth's drain, so that
+    reading them waits for nothing (a unit on several devices counts its
+    longest); a build on the CPU has finished on return and is timed on
+    the host."""
+
+    def __init__(self, dev: torch.device) -> None:
+        self.dev = dev
+        self.builds = 0
+        self._pairs: List[List[Tuple]] = []
+        self._host_s = 0.0
+
+    @staticmethod
+    def _event(dev: torch.device) -> "torch.cuda.Event":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+
+    def build(self, u: _Unit):
+        self.builds += 1
+        devs = [d for d in dict.fromkeys(u.devices or [self.dev])
+                if d.type == "cuda"]
+        if not devs:
+            t = time.perf_counter()
+            index = u.build()
+            self._host_s += time.perf_counter() - t
+            return index
+        starts = [self._event(d) for d in devs]
+        index = u.build()
+        self._pairs.append([(a, self._event(d))
+                            for a, d in zip(starts, devs)])
+        return index
+
+    def seconds(self) -> float:
+        dev_s = 0.0
+        for pairs in self._pairs:
+            for _, b in pairs:
+                b.synchronize()
+            dev_s += max(a.elapsed_time(b) for a, b in pairs) / 1e3
+        return self._host_s + dev_s
+
+
 def _device_rows(step, t: PackedText, source: pipeline.BatchSource, index):
     """One device's (one rank's) rows: the whole batch, and `step`
     (match_step, sharded_match_step)."""
@@ -795,7 +839,8 @@ def _local_layout(cfg: RealConfig, texts: List[TextFile],
 def _foreach_unit(cfg: RealConfig, route: _Route, texts: List[TextFile],
                   cand_cap: int, visit, prog: _Progress, *,
                   skip_units: int = 0,
-                  index_cache: Optional[Dict] = None) -> Dict[str, object]:
+                  index_cache: Optional[Dict] = None,
+                  clock: Optional[_BuildClock] = None) -> Dict[str, object]:
     """The unit loop of every route: for each unit in order, take its
     index from index_cache, the exchange or a build, and call visit(unit,
     index, bsearch_steps). The first skip_units units are skipped entirely
@@ -810,7 +855,11 @@ def _foreach_unit(cfg: RealConfig, route: _Route, texts: List[TextFile],
     the CPU); at most 2 units are kept in flight, and 1 under a
     serial_build plan, which also drops the previous unit's lists BEFORE
     the next build so that the peak is one build and not lists plus a
-    build.
+    build. Each wait for a unit in flight is a span `index.unit_wait`;
+    each build adds 1 to the job's counter `index.units_built` and the
+    unit's windows (a mesh pass: its shard width) to
+    `index.windows_built`, at every depth; a cache hit or an exchange load
+    adds nothing. A `clock` (_BuildClock) times each build.
 
     index_cache: a SINGLE-unit run of one device parks its built index
     there so the overflow rerun (driver recursion) reuses it instead of
@@ -825,11 +874,17 @@ def _foreach_unit(cfg: RealConfig, route: _Route, texts: List[TextFile],
         gathers0 = (sum(m.gather_s for m in meshes),
                     sum(m.gathers for m in meshes))
     exchange = route.exchange
+
+    def build(u: _Unit):
+        spans.add("index.units_built", 1)
+        spans.add("index.windows_built", u.windows)
+        return u.build() if clock is None else clock.build(u)
+
     if exchange is not None:
         with prog.phase("index_build"):
             for i, u in enumerate(units[skip_units:], skip_units):
                 if exchange.owns(i):
-                    exchange.save(i, u.build())
+                    exchange.save(i, build(u))
     index_cache = {} if index_cache is None else index_cache
     inflight: List = []
     index = None
@@ -838,7 +893,8 @@ def _foreach_unit(cfg: RealConfig, route: _Route, texts: List[TextFile],
             account["units_skipped"] += 1
             continue
         while len(inflight) >= (1 if u.serial else 2):
-            _wait_events(cfg, inflight.pop(0), "index unit in flight")
+            with spans.span("index.unit_wait"):
+                _wait_events(cfg, inflight.pop(0), "index unit in flight")
         if u.serial:
             index = None
         if index_cache.get(u.key) is not None:
@@ -848,7 +904,7 @@ def _foreach_unit(cfg: RealConfig, route: _Route, texts: List[TextFile],
                 index = exchange.load(i)
         else:
             with prog.phase("index_build"):
-                index = u.build()
+                index = build(u)
             if u.key is not None and len(units) == 1:
                 index_cache[u.key] = index
         bbits = index.bucket_bits if u.bbits is None else u.bbits
@@ -1355,8 +1411,11 @@ def _run(mode_cls, cfg: RealConfig, rs: reads_io.ReadSet,
          survivor_cap, mesh_plan, depth: int, index_cache):
     """The job of a mode (_UniqueMode, _AllMode) on any route: setup and
     the route (_route), the checkpoint's open and resume, the unit loop,
-    the drain, the result, the rerun of overflowing reads with 16x caps,
-    the phase timers, the checkpoint's delete, the -debug validation."""
+    the drain, the builds' device seconds (the job's counter
+    `index.build_device_s`, at a rerun's depths
+    `rerun.index.build_device_s`), the result, the rerun of overflowing
+    reads with 16x caps, the phase timers, the checkpoint's delete, the
+    -debug validation."""
     dev = _check_run(cfg, texts, device)
     index_cache = {} if index_cache is None else index_cache
     cand_cap = cand_cap or cfg.cand_cap
@@ -1409,9 +1468,14 @@ def _run(mode_cls, cfg: RealConfig, rs: reads_io.ReadSet,
         checkpoint_unit()
         return _record_events(u.devices or [dev])
 
+    clock = _BuildClock(dev)
     account = _foreach_unit(cfg, route, texts, cand_cap, visit, prog,
-                            skip_units=skip_units, index_cache=index_cache)
+                            skip_units=skip_units, index_cache=index_cache,
+                            clock=clock)
     result, over_ids = mode.finish(prog)
+    if clock.builds:
+        spans.add("rerun.index.build_device_s" if depth
+                  else "index.build_device_s", clock.seconds())
     result.metrics = {"phase_s": dict(prog.phase_s),
                       "overflow_rerun_reads": int(len(over_ids)),
                       **result.metrics, **account,

@@ -109,7 +109,10 @@ def test_records_counter_counts_the_lines_printed(match_all):
 def test_decoded_rows_exceed_the_records_when_reads_are_rerun(match_all):
     _, m = match_all
     c = m["counters"]
-    assert set(c) == HIT_COUNTERS | {"output.records", "output.score_slow"}
+    assert set(c) == HIT_COUNTERS | {"output.records", "output.score_slow",
+                                     "index.units_built",
+                                     "index.windows_built",
+                                     "index.build_device_s"}
     assert m["overflow_rerun_reads"] > 0
     # the first-pass hits of the rerun reads are decoded and dropped
     assert c["allhits.decoded"] > c["allhits.records"]
